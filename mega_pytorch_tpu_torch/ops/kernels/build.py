@@ -1,0 +1,108 @@
+"""Builds and loads the port's CUDA kernels (``csrc/*.cu``).
+
+All sources are compiled by ``nvcc`` for ``sm_90a`` into ONE shared library
+with a plain C interface, loaded with ``ctypes``; no PyTorch headers are
+involved, so a build takes seconds. The library's file name carries a hash of
+the sources and flags, so an edited source is rebuilt on first use and an
+unchanged one is loaded as it is. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "stem_pool_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "relation_attention_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ),
+}
+
+
+@dataclass
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    built: bool  # False when an up-to-date library was only loaded
+    seconds: float
+    ptxas: list[str]  # nvcc -Xptxas -v register / shared-memory lines
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+_LOADED: list[KernelLibrary] = []  # the process's library, once loaded
+
+
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process."""
+    if _LOADED:
+        return _LOADED[0]
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = _digest(sources)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"libmega_kernels_{digest}.so"
+    t0 = time.perf_counter()
+    built, ptxas = False, []
+    if not target.exists():
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, target)
+        built = True
+        ptxas = [
+            line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+            if any(key in line for key in ("Compiling entry", "registers",
+                                           "smem", "bytes stack frame"))
+        ]
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    record = KernelLibrary(lib, target, built, time.perf_counter() - t0, ptxas)
+    _LOADED.append(record)
+    return record
+
+
+def check_launch(status: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if status != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {status}")

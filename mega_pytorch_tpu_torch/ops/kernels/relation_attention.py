@@ -1,0 +1,151 @@
+"""Flash relation attention (forward): modes "none" and "compute".
+
+Counterpart of ``mega_pytorch_tpu/ops/pallas/relation_attention.py``:
+``flash_relation_attention`` replaces ``fused_relation_attention`` with no
+bias (``_fused_fwd_batched`` bias_mode "none"), and
+``flash_relation_attention_pos`` replaces ``fused_relation_attention_pos``
+(bias_mode "compute": the position weight evaluated inside the kernel). Both
+launch the CUDA kernel of ``csrc/relation_attention.cu`` (bound, design and
+numerics in its source note). Bias mode "input" is not ported yet.
+
+Layouts are the JAX package's: q (B, g, N, d), k and v (B, g, M, d), uk
+(B, g, M), valid (B, M), rois (B, N, 4), ref_rois (B, M, 4), Wg (E, g).
+The kernel takes g = 16, d = 64 and E = 64 (the MEGA configuration).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .build import check_launch, load_library
+from .position_bias import bias_freq_scales, reference_position_bias
+
+NEG_INF = -1e30
+GROUPS, HEAD_DIM, EMBED_DIM = 16, 64, 64
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and compute on in f32 (a bf16 product is exact in f32,
+    so f32 matmuls of rounded operands equal bf16 matmuls with f32 sums)."""
+    return x.to(torch.bfloat16).float()
+
+
+def reference_relation_attention(q, k, v, uk, bias, valid):
+    """Plain version: (B, g, N, d) output with bf16 QK/PV operands, f32 sums.
+
+    bias: (B, g, N, M) additive log bias, or None."""
+    d = q.shape[-1]
+    aff = _bf16(q) @ _bf16(k).transpose(-1, -2)
+    aff = (aff + uk.float()[..., None, :]) * (1.0 / math.sqrt(d))
+    if bias is not None:
+        aff = aff + bias
+    keep = valid[:, None, None, :]
+    aff = torch.where(keep, aff, torch.full_like(aff, NEG_INF))
+    soft = torch.softmax(aff, dim=-1)
+    soft = torch.where(valid.any(-1)[:, None, None, None], soft, torch.zeros_like(soft))
+    return _bf16(soft) @ _bf16(v)
+
+
+def reference_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
+                                     wg_bias, valid, sin_dtype=torch.float32):
+    """Plain version of mode "compute": the log position bias materialised by
+    ``reference_position_bias`` and added to the logits."""
+    bias = reference_position_bias(rois, ref_rois, wg_kernel, wg_bias,
+                                   EMBED_DIM, sin_dtype=sin_dtype)
+    return reference_relation_attention(q, k, v, uk, bias, valid)
+
+
+_FREQS: dict[torch.device, torch.Tensor] = {}
+
+
+def _freqs(device: torch.device) -> torch.Tensor:
+    """The sinusoid frequencies as an f32 tensor on ``device`` (kept per device)."""
+    if device not in _FREQS:
+        _FREQS[device] = torch.tensor(bias_freq_scales(EMBED_DIM // 8),
+                                      dtype=torch.float32, device=device)
+    return _FREQS[device]
+
+
+def _check(q, k, v, uk, valid, extra=()):
+    """Raise on operands the kernel does not take."""
+    b, g, n, d = q.shape
+    m = k.shape[2]
+    if (g, d) != (GROUPS, HEAD_DIM):
+        raise ValueError(f"kernel takes g={GROUPS}, d={HEAD_DIM}; got {g}, {d}")
+    want = {
+        "k": (k, (b, g, m, d), torch.bfloat16),
+        "v": (v, (b, g, m, d), torch.bfloat16),
+        "uk": (uk, (b, g, m), torch.float32),
+        "valid": (valid, (b, m), torch.bool),
+    }
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError("q must be contiguous bf16 (B, g, N, d)")
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    for t in (k, v, uk, valid, *extra):
+        if t.device != q.device:
+            raise ValueError("all operands must be on one device")
+
+
+def _launch(q, k, v, uk, valid, rois, refs, params, mode):
+    b, _, n, _ = q.shape
+    m = k.shape[2]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lib = load_library().lib
+    status = lib.relation_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), uk.data_ptr(),
+        valid.data_ptr(), rois.data_ptr(), refs.data_ptr(), params.data_ptr(),
+        out.data_ptr(), b, n, m, mode,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch(status, "relation_attention")
+    return out
+
+
+def flash_relation_attention(q, k, v, uk, valid):
+    """Mode "none": (B, g, N, d) f32. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (``flash_relation_attention.launches``)."""
+    if any(t.requires_grad for t in (q, k, v, uk, valid)):
+        raise ValueError("relation attention kernels are inference-only")
+    if q.device.type == "cpu":
+        return reference_relation_attention(q, k, v, uk, None, valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, uk, valid)
+    out = _launch(q, k, v, uk, valid, uk, uk, uk, mode=0)
+    flash_relation_attention.launches += 1
+    return out
+
+
+def flash_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
+                                 wg_bias, valid):
+    """Mode "compute": position weight evaluated in-kernel. CPU tensors take
+    the plain version (f32 sinusoids); CUDA tensors launch the kernel
+    (``flash_relation_attention_pos.launches``)."""
+    extra = (rois, ref_rois, wg_kernel, wg_bias)
+    if any(t.requires_grad for t in (q, k, v, uk, valid, *extra)):
+        raise ValueError("relation attention kernels are inference-only")
+    if q.device.type == "cpu":
+        return reference_relation_attention_pos(q, k, v, uk, *extra, valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, uk, valid, extra)
+    b, _, n, _ = q.shape
+    m = k.shape[2]
+    for name, t, shape in (("rois", rois, (b, n, 4)), ("ref_rois", ref_rois, (b, m, 4)),
+                           ("wg_kernel", wg_kernel, (EMBED_DIM, GROUPS)),
+                           ("wg_bias", wg_bias, (GROUPS,))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 {shape}")
+    params = torch.cat([wg_kernel.reshape(-1), wg_bias, _freqs(q.device)])
+    out = _launch(q, k, v, uk, valid, rois, ref_rois, params, mode=1)
+    flash_relation_attention_pos.launches += 1
+    return out
+
+
+flash_relation_attention.launches = 0
+flash_relation_attention_pos.launches = 0

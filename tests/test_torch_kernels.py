@@ -1,0 +1,143 @@
+"""The port's kernel modules against the JAX Pallas kernels.
+
+On the CPU the Pallas kernels run in interpret mode and the port's wrappers
+take their plain PyTorch versions (the only path a CPU tensor has). The CUDA
+kernels against those plain versions: test_torch_kernels_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mega_pytorch_tpu.ops.pallas.position_bias import (
+    reference_position_bias as jax_position_bias,
+)
+from mega_pytorch_tpu.ops.pallas.relation_attention import (
+    _fused_fwd_batched,
+    reference_relation_attention as jax_reference_attention,
+)
+from mega_pytorch_tpu.ops.pallas.stem_pool import stem_pool_packed as jax_stem_pool
+from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
+from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+from mega_pytorch_tpu_torch.ops.kernels.position_bias import reference_position_bias
+
+torch.set_num_threads(2)
+
+B, G, N, M, D, E = 2, 16, 37, 300, 64, 64
+ATOL_NONE, ATOL_POS, ATOL_TWIN = 6e-3, 2e-2, 1e-3
+
+
+def _attention_data(seed=0, b=B, n=N, m=M):
+    rs = np.random.RandomState(seed)
+
+    def boxes(count):
+        return (np.abs(rs.randn(b, count, 4)) * 50
+                + np.array([0, 0, 60, 60])).astype(np.float32)
+
+    valid = rs.rand(b, m) > 0.2
+    valid[1, : m // 2] = False  # lanes with different valid sets
+    return dict(
+        q=rs.randn(b, G, n, D).astype(np.float32),
+        k=rs.randn(b, G, m, D).astype(np.float32),
+        v=rs.randn(b, G, m, D).astype(np.float32),
+        uk=(rs.randn(b, G, m) * 0.1).astype(np.float32),
+        rois=boxes(n), refs=boxes(m),
+        wk=(rs.randn(E, G) * 0.05).astype(np.float32),
+        wb=(rs.rand(G) * 0.1).astype(np.float32),
+        valid=valid,
+    )
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _pos_args(x):
+    return (_t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["uk"]), _t(x["rois"]),
+            _t(x["refs"]), _t(x["wk"]), _t(x["wb"]), _t(x["valid"]))
+
+
+def _jax_flash(x, pos: bool):
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    bias = (j["rois"], j["refs"], j["wk"], j["wb"]) if pos else None
+    return np.asarray(_fused_fwd_batched(
+        j["q"], j["k"], j["v"], j["uk"], bias, j["valid"], embed_dim=E,
+        interpret=True))
+
+
+@pytest.mark.parametrize("t_rows", [10, 7])
+def test_stem_pool_plain_matches_pallas_exactly(t_rows):
+    """f32, with a T that the Pallas tile (5 rows) does not divide."""
+    o, u = 16, 12
+    rs = np.random.RandomState(7)
+    y = rs.randn(2, t_rows, u, 4 * o).astype(np.float32) * 2
+    scale = np.tile(rs.rand(o) + 0.5, 4).astype(np.float32)
+    shift = np.tile(rs.randn(o), 4).astype(np.float32)
+    want = np.asarray(jax_stem_pool(jnp.asarray(y), jnp.asarray(scale),
+                                    jnp.asarray(shift), o, tile_h=5,
+                                    interpret=True))
+    with torch.inference_mode():
+        got = sp.stem_pool_packed(_t(y), _t(scale), _t(shift), o).numpy()
+    assert got.shape == (2, t_rows, u, o)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_stem_pool_rejects_grad_and_bad_shapes():
+    y = torch.zeros(1, 4, 4, 32, requires_grad=True)
+    s = torch.ones(32)
+    with pytest.raises(ValueError):
+        sp.stem_pool_packed(y, s, s, 8)
+    with pytest.raises(ValueError):
+        sp.stem_pool_packed(torch.zeros(1, 4, 4, 30), s, s, 8)
+
+
+def test_attention_none_plain_matches_pallas():
+    x = _attention_data()
+    want = _jax_flash(x, pos=False)
+    got = ra.flash_relation_attention(_t(x["q"]), _t(x["k"]), _t(x["v"]),
+                                      _t(x["uk"]), _t(x["valid"])).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_NONE)
+
+
+def test_attention_compute_plain_matches_pallas():
+    x = _attention_data(1)
+    want = _jax_flash(x, pos=True)
+    got = ra.flash_relation_attention_pos(*_pos_args(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_POS)
+
+
+@pytest.mark.parametrize("sin_dtype", ["float32", "bfloat16"])
+def test_plain_twins_match_jax_references(sin_dtype):
+    """The port's plain bias + attention against the JAX package's plain
+    twins (per lane, same sinusoid dtype)."""
+    x = _attention_data(2)
+    jdt, tdt = getattr(jnp, sin_dtype), getattr(torch, sin_dtype)
+    bias_t = reference_position_bias(_t(x["rois"]), _t(x["refs"]), _t(x["wk"]),
+                                     _t(x["wb"]), E, sin_dtype=tdt)
+    got = ra.reference_relation_attention(_t(x["q"]), _t(x["k"]), _t(x["v"]),
+                                          _t(x["uk"]), bias_t, _t(x["valid"]))
+    for lane in range(B):
+        j = {k: jnp.asarray(v[lane]) for k, v in x.items() if k not in ("wk", "wb")}
+        bias_j = jax_position_bias(j["rois"], j["refs"], jnp.asarray(x["wk"]),
+                                   jnp.asarray(x["wb"]), E, sin_dtype=jdt)
+        # the position weight pw = exp(log bias); the log itself is
+        # ill-conditioned where relu leaves pw near its 1e-6 floor
+        np.testing.assert_allclose(np.exp(bias_t[lane].numpy()),
+                                   np.exp(np.asarray(bias_j)), rtol=0,
+                                   atol=ATOL_TWIN)
+        want = jax_reference_attention(j["q"], j["k"], j["v"], j["uk"], bias_j,
+                                       j["valid"])
+        np.testing.assert_allclose(got[lane].numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL_TWIN, err_msg=f"lane {lane}")
+
+
+def test_all_invalid_refs_give_exact_zeros():
+    x = _attention_data(3)
+    x["valid"][:] = False
+    none = ra.flash_relation_attention(_t(x["q"]), _t(x["k"]), _t(x["v"]),
+                                       _t(x["uk"]), _t(x["valid"]))
+    pos = ra.flash_relation_attention_pos(*_pos_args(x))
+    assert float(none.abs().max()) == 0.0
+    assert float(pos.abs().max()) == 0.0
+    assert float(np.abs(_jax_flash(x, pos=False)).max()) == 0.0
