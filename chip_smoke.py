@@ -111,7 +111,7 @@ def _attention_inputs(gen, b, n, m, dev):
     bf = torch.bfloat16
     return dict(
         q=randn(b, 16, n, 64).to(bf), k=randn(b, 16, m, 64).to(bf),
-        v=randn(b, 16, m, 64).to(bf), uk=randn(b, 16, m, scale=0.1),
+        v=randn(b, 16, m, 64).to(bf), uk=randn(b, 16, m, scale=8.0),  # as q.k
         valid=torch.rand(b, m, generator=gen, device=dev) > 0.2,
         rois=boxes(n), refs=boxes(m),
         wk=randn(64, 16, scale=0.05),
@@ -225,21 +225,10 @@ def phase_kernels():
     return rows
 
 
-def _video(rs):
-    from mega_pytorch_tpu_torch.data.transforms import s2d_pack_frames
-
-    h, w = CANVAS
-    frames = rs.randint(0, 256, (NUM_FRAMES, h, w, 3), dtype="uint8")
-    packed = s2d_pack_frames(frames, 4)  # (L, 152, 256, 48)
-    n_glob = 10 + NUM_FRAMES - 1
-    gidx = rs.randint(0, NUM_FRAMES, n_glob)
-    return packed, packed[gidx]
-
-
 def phase_stream():
     import numpy as np
     import torch
-    from mega_pytorch_tpu_torch.engine.inference import run_video
+    from mega_pytorch_tpu_torch.engine.inference import run_video, synthetic_video
     from mega_pytorch_tpu_torch.models.detectors.mega import build_mega_flagship
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
     from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
@@ -247,7 +236,7 @@ def phase_stream():
     t0 = time.perf_counter()
     model = build_mega_flagship(*CANVAS, device="cuda",
                                 generator=torch.Generator("cuda").manual_seed(0))
-    frames, gframes = _video(np.random.RandomState(0))
+    frames, gframes = synthetic_video(np.random.RandomState(0), NUM_FRAMES, *CANVAS)
     torch.cuda.synchronize()
     print(f"[stream] built MEGA R-101 bf16 {CANVAS[0]}x{CANVAS[1]} in "
           f"{time.perf_counter() - t0:.1f} s; frames {frames.shape} uint8")

@@ -19,7 +19,7 @@ from typing import Iterator, NamedTuple
 import numpy as np
 import torch
 
-from ..data.transforms import normalize_u8_frames
+from ..data.transforms import normalize_u8_frames, s2d_pack_frames
 
 
 class StepOutput(NamedTuple):
@@ -67,6 +67,16 @@ def video_schedule(num_frames: int, warmup: int, global_size: int):
     return steps
 
 
+def synthetic_video(rs: np.random.RandomState, num_frames: int, canvas_h: int,
+                    canvas_w: int, global_size: int = 10):
+    """Random uint8 video, s2d(4)-packed on the host: (frames (L, H/4, W/4,
+    48), global frames drawn from them in the count ``run_video`` needs)."""
+    frames = rs.randint(0, 256, (num_frames, canvas_h, canvas_w, 3), dtype="uint8")
+    packed = s2d_pack_frames(frames, 4)
+    gidx = rs.randint(0, num_frames, global_size + num_frames - 1)
+    return packed, packed[gidx]
+
+
 def run_video(model, frames: np.ndarray, global_frames: np.ndarray,
               sizes: np.ndarray | None = None,
               global_sizes: np.ndarray | None = None) -> Iterator[StepOutput]:
@@ -85,7 +95,7 @@ def run_video(model, frames: np.ndarray, global_frames: np.ndarray,
         raise ValueError(f"{len(frames)} frames need {need} global frames, "
                          f"got {len(global_frames)}")
     dev = next(model.parameters()).device
-    pack = 4 if frames.shape[-1] == 48 else 2 if frames.shape[-1] == 12 else 1
+    pack = {48: 4, 3: 1}[frames.shape[-1]]  # s2d(4)-packed or plain RGB
     canvas = np.array([frames.shape[1] * pack, frames.shape[2] * pack], np.float32)
     if sizes is None:
         sizes = np.tile(canvas, (len(frames), 1))

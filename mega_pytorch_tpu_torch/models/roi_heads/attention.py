@@ -37,22 +37,20 @@ class _Wg(nn.Module):
 
 class RelationAttention(nn.Module):
     def __init__(self, feat_dim=1024, embed_dim=64, groups=16, use_position=True,
-                 use_u_bias=False, dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.feat_dim, self.embed_dim, self.groups = feat_dim, embed_dim, groups
         self.use_position, self.dtype = use_position, dtype
         d = feat_dim // groups
         self.Wq = Dense(feat_dim, feat_dim, dtype, device=device)
         self.Wk = Dense(feat_dim, feat_dim, dtype, device=device)
-        self.u = (nn.Parameter(torch.empty(groups, embed_dim, device=device))
-                  if use_u_bias else None)
+        self.u = nn.Parameter(torch.empty(groups, embed_dim, device=device))
         self.Wg = _Wg(embed_dim, groups, device) if use_position else None
         self.Wv_kernel = nn.Parameter(torch.empty(groups, feat_dim, d, device=device))
         self.Wv_bias = nn.Parameter(torch.zeros(feat_dim, device=device))
 
     def init_weights(self, generator) -> None:
-        if self.u is not None:
-            self.u.data.normal_(0.0, 0.01, generator=generator)
+        self.u.data.normal_(0.0, 0.01, generator=generator)
         if self.Wg is not None:
             self.Wg.kernel.data.normal_(0.0, 0.01, generator=generator)
             self.Wg.bias.data.zero_()
@@ -60,8 +58,7 @@ class RelationAttention(nn.Module):
         self.Wv_bias.data.zero_()
 
     def cast_weights_(self) -> None:
-        if self.u is not None:
-            self.u.data = self.u.data.to(self.dtype)
+        self.u.data = self.u.data.to(self.dtype)
         self.Wv_kernel.data = self.Wv_kernel.data.to(self.dtype)
 
     def forward(self, roi_feat, ref_feat, ref_valid=None, pos_rois=None):
@@ -73,10 +70,7 @@ class RelationAttention(nn.Module):
         m = ref_feat.shape[0]
         q = self.Wq(roi_feat).reshape(-1, g, d)
         k = self.Wk(ref_feat).reshape(-1, g, d)
-        if self.u is not None:
-            uk = torch.einsum("gd,mgd->gm", self.u.to(dt).float(), k.float())
-        else:
-            uk = torch.zeros((g, m), dtype=torch.float32, device=k.device)
+        uk = torch.einsum("gd,mgd->gm", self.u.to(dt).float(), k.float())
         # per-group values: (M, g, d), f32 sums over dt operands
         v = torch.einsum("mf,gfd->mgd", ref_feat.to(dt).float(),
                          self.Wv_kernel.to(dt).float())

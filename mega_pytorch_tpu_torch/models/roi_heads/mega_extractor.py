@@ -50,11 +50,11 @@ class MEGAFeatureExtractor(nn.Module):
             setattr(self, f"l_fcs_{i}", Dense(flat if i == 0 else mlp_dim, mlp_dim,
                                               dtype, device=device))
             setattr(self, f"l_attn_{i}", RelationAttention(
-                mlp_dim, embed_dim, groups, True, True, dtype, device))
+                mlp_dim, embed_dim, groups, True, dtype, device))
         if global_enable:
             for i in range(global_res_stage + 1):
                 setattr(self, f"g_attn_{i}", RelationAttention(
-                    mlp_dim, embed_dim, groups, False, True, dtype, device))
+                    mlp_dim, embed_dim, groups, False, dtype, device))
 
     def l_fcs(self, i: int) -> Dense:
         return getattr(self, f"l_fcs_{i}")

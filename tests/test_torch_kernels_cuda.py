@@ -39,7 +39,7 @@ def _attention(dev, seed, b=2, n=37, m=300):
     q = t(rs.randn(b, 16, n, 64), bf)
     k = t(rs.randn(b, 16, m, 64), bf)
     v = t(rs.randn(b, 16, m, 64), bf)
-    uk = t(rs.randn(b, 16, m) * 0.1)
+    uk = t(rs.randn(b, 16, m) * 8)  # the scale of q.k
     rois, refs = boxes(n), boxes(m)
     wk = t(rs.randn(64, 16) * 0.05)
     wb = t(rs.rand(16) * 0.1)

@@ -279,7 +279,7 @@ def test_relation_attention_matches(use_position):
         # differ by an ulp, one bf16 step can flip) moves it by < 1e-4
         params["Wg"]["bias"] = np.full_like(params["Wg"]["bias"], 0.5)
     want = np.asarray(jmod.apply({"params": params}, *args, pos_rois=pos))
-    port = _load(RelationAttention(use_position=use_position, use_u_bias=True), params)
+    port = _load(RelationAttention(use_position=use_position), params)
     with torch.inference_mode():
         got = port(_t(x), _t(refs), _t(valid),
                    pos_rois=(_t(rois), _t(ref_rois)) if use_position else None).numpy()
