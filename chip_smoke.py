@@ -11,14 +11,28 @@ Phases, each printing its own lines:
      flagship path gives them: stem pool (exact, bf16 and f32), relation
      attention mode "none" (atol 6e-3) and "compute" (atol 2e-2 against the
      f32-sinusoid plain version), a 2-lane call whose lane 0 equals the
-     1-lane call, all-invalid refs giving zeros; each with the kernel's and
-     the plain version's time (TF32 off for the f32 checks);
+     1-lane call, all-invalid refs giving zeros; mode "input" at the stage-0
+     shape (atol 6e-3) and ``fused_position_bias`` against its f32 plain
+     version in weight space (rtol 5e-3, atol 6e-3); a 12-lane call of each
+     attention mode whose every lane equals the 1-lane call exactly; each
+     with the kernel's and the plain version's time (TF32 off);
   4. stream: MEGA R-101 in bf16 at 608x1024 with seeded random weights runs a
-     40-frame synthetic video through ``run_video``; detections must be
-     finite with 300 slots, and every kernel launch count must be exactly
-     what the path implies; prints ms/frame, frames/s and peak memory;
+     40-frame synthetic video through ``run_video`` (one lane); detections
+     must be finite with 300 slots, and every kernel launch count must be
+     exactly what the path implies; prints ms/frame, frames/s and peak memory;
   5. determinism: the first 15 steps again from a fresh carry give
-     bit-identical detections.
+     bit-identical detections;
+  6. lanes: the same model built for 12 lanes serves 24 synthetic videos of
+     12-40 frames from an in-memory dataset through
+     ``compute_on_dataset_lockstep``; every frame must be emitted exactly
+     once, detections finite with 300 slots, each step must launch 1 stem
+     pool, 2 "none" and 3 "compute" kernels whatever the lane count, and the
+     first 15 steps re-run from fresh carries must be bit-identical; prints
+     ms/step, frames/s and peak memory;
+  7. position-bias paths: ``RelationAttention(pos_emb=...)`` (mode "input")
+     against the same module with ``pos_rois`` (mode "compute"), and
+     ``fused_position_bias`` against that module's log bias, at the stage-0
+     shape.
 The last two lines are the kernel table and the device record as JSON.
 Any failed check raises, and the script exits non-zero.
 """
@@ -33,10 +47,14 @@ import time
 from itertools import islice
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 CANVAS = (608, 1024)
 NUM_FRAMES = 40
+LANES, NUM_VIDEOS = 12, 24
 ATOL_NONE, ATOL_POS = 6e-3, 2e-2
+RTOL_BIAS, ATOL_BIAS = 5e-3, 6e-3  # fused_position_bias in weight space
 TIMING_REPEATS = 25  # timed turns per version
 TIMING_INNER = 10  # back-to-back calls per timed turn
 
@@ -222,11 +240,119 @@ def phase_kernels():
     print(f"[kernels] all-invalid refs: max |out| {zmax}")
     if zmax != 0.0:
         _fail("all-invalid refs did not give exact zeros")
+
+    from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
+
+    # mode "input" at the stage-0 shape, with the log bias the path would add
+    x = _attention_inputs(gen, 1, 675, 3750, dev)
+    bias = pb.reference_position_bias(x["rois"], x["refs"], x["wk"], x["wb"], 64,
+                                      sin_dtype=torch.float32).contiguous()
+    args = (x["q"], x["k"], x["v"], x["uk"], bias, x["valid"])
+    got = ra.flash_relation_attention_bias(*args)
+    want = ra.reference_relation_attention(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        _fail("relation_attention input: non-finite kernel output")
+    err = (got - want).abs().max().item()
+    ms, plain_ms = _time_pair(lambda: ra.reference_relation_attention(*args),
+                              lambda: ra.flash_relation_attention_bias(*args))
+    print(f"[kernels] relation_attention input (stage 0) N=675 M=3750, bias "
+          f"{bias.numel() * 4 / 1e6:.0f} MB f32: max_abs_err {err:.3e} (atol "
+          f"{ATOL_NONE}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not err <= ATOL_NONE:
+        _fail(f"relation_attention input: max_abs_err {err} above atol {ATOL_NONE}")
+    rows["flash_relation_attention_bias"] = dict(max_abs_err=err, ms=ms,
+                                                 plain_ms=plain_ms)
+    z = ra.flash_relation_attention_bias(*args[:5], torch.zeros_like(x["valid"]))
+    print(f"[kernels] all-invalid refs, mode input: max |out| {z.abs().max().item()}")
+    if z.abs().max().item() != 0.0:
+        _fail("mode input: all-invalid refs did not give exact zeros")
+
+    # the standalone position bias at (675, 3750, g=16), in weight space
+    pargs = (x["rois"][0].contiguous(), x["refs"][0].contiguous(), x["wk"], x["wb"])
+    got = pb.fused_position_bias(*pargs).exp()
+    want = pb.reference_position_bias(*pargs, 64, sin_dtype=torch.float32).exp()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    excess = ((got - want).abs() - (ATOL_BIAS + RTOL_BIAS * want.abs())).max().item()
+    ms, plain_ms = _time_pair(
+        lambda: pb.reference_position_bias(*pargs, 64, sin_dtype=torch.float32),
+        lambda: pb.fused_position_bias(*pargs))
+    print(f"[kernels] fused_position_bias (675, 3750, g=16): weight-space "
+          f"max_abs_err {err:.3e} (rtol {RTOL_BIAS}, atol {ATOL_BIAS}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not (torch.isfinite(got).all() and excess <= 0.0):
+        _fail("fused_position_bias differs from its plain version beyond tolerance")
+    rows["fused_position_bias"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # the path's kernels at the 12-lane step's shapes (2 x 12 frames, B=12)
+    y = (torch.randn(2 * LANES, 152, 256, 256, generator=gen, device=dev) * 2
+         ).to(torch.bfloat16)
+    scale = torch.rand(256, generator=gen, device=dev) + 0.5
+    shift = torch.randn(256, generator=gen, device=dev)
+    exact = torch.equal(sp.stem_pool_packed(y, scale, shift, 64),
+                        sp.stem_pool_packed_reference(y, scale, shift, 64))
+    ms, plain_ms = _time_pair(lambda: sp.stem_pool_packed_reference(y, scale, shift, 64),
+                              lambda: sp.stem_pool_packed(y, scale, shift, 64), repeats=5)
+    print(f"[kernels] {LANES} lanes: stem_pool bf16 ({2 * LANES},152,256,256): exact "
+          f"{exact}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not exact:
+        _fail("stem_pool is not bit-exact at the 12-lane shape")
+    del y
+    for label, n, m, pos in (("none (global enhance)", 2175, 750, False),
+                             ("compute (stage 0)", 675, 3750, True)):
+        x = _attention_inputs(gen, LANES, n, m, dev)
+        if pos:
+            args = (x["q"], x["k"], x["v"], x["uk"], x["rois"], x["refs"], x["wk"],
+                    x["wb"], x["valid"])
+            kern = lambda: ra.flash_relation_attention_pos(*args)  # noqa: E731
+            plain = lambda: ra.reference_relation_attention_pos(*args)  # noqa: E731
+        else:
+            args = (x["q"], x["k"], x["v"], x["uk"], x["valid"])
+            kern = lambda: ra.flash_relation_attention(*args)  # noqa: E731
+            plain = lambda: ra.reference_relation_attention(  # noqa: E731
+                *args[:4], None, args[4])
+        err = (kern() - plain()).abs().max().item()
+        ms, plain_ms = _time_pair(plain, kern, repeats=5)
+        tol = ATOL_POS if pos else ATOL_NONE
+        print(f"[kernels] {LANES} lanes: relation_attention {label} B={LANES} N={n} "
+              f"M={m}: max_abs_err {err:.3e} (atol {tol}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+        if not err <= tol:
+            _fail(f"relation_attention {label} at B={LANES}: max_abs_err {err}")
+        del x, args
+
+    # 12 lanes: every lane of a B=12 call equals the B=1 call on its data
+    x = _attention_inputs(gen, LANES, 300, 750, dev)
+    x["valid"][3] = False  # one lane with no valid ref
+    bias = pb.reference_position_bias(x["rois"], x["refs"], x["wk"], x["wb"], 64,
+                                      sin_dtype=torch.float32).contiguous()
+
+    def call(mode, sl):
+        def t(name):
+            return (bias if name == "bias" else x[name])[sl].contiguous()
+        if mode == "none":
+            return ra.flash_relation_attention(t("q"), t("k"), t("v"), t("uk"),
+                                               t("valid"))
+        if mode == "compute":
+            return ra.flash_relation_attention_pos(
+                t("q"), t("k"), t("v"), t("uk"), t("rois"), t("refs"), x["wk"],
+                x["wb"], t("valid"))
+        return ra.flash_relation_attention_bias(t("q"), t("k"), t("v"), t("uk"),
+                                                t("bias"), t("valid"))
+
+    for mode in ("none", "compute", "input"):
+        batched = call(mode, slice(None))
+        same = all(torch.equal(batched[i:i + 1], call(mode, slice(i, i + 1)))
+                   for i in range(LANES))
+        print(f"[kernels] lanes {mode}: every lane of B={LANES} == its B=1 call: "
+              f"{same}")
+        if not same:
+            _fail(f"mode {mode}: a {LANES}-lane call differs from its 1-lane calls")
     return rows
 
 
 def phase_stream():
-    import numpy as np
     import torch
     from mega_pytorch_tpu_torch.engine.inference import run_video, synthetic_video
     from mega_pytorch_tpu_torch.models.detectors.mega import build_mega_flagship
@@ -294,6 +420,234 @@ def phase_determinism(model, frames, gframes, outs):
           f"bit-identical ({15 * 300} slots)")
 
 
+class _Canvas:
+    """What the preprocessor hands the engine: a uint8 canvas and its size."""
+
+    def __init__(self, image):
+        self.image = image
+        self.size = np.array(image.shape[:2], np.float32)
+
+
+class _Preprocessor:
+    """In-memory stand-in: frames already are full canvases."""
+
+    def _prep_u8(self, img, flip):
+        return _Canvas(img)
+
+
+class _SyntheticVideos:
+    """In-memory stand-in for the VID dataset, with the duck-typed API the
+    lockstep engine reads. Video v has ``lengths[v]`` frames; frames come
+    from a pool of random uint8 canvases; the global refs of a video follow a
+    fixed permutation of its frames (global_size of them on frame 0, then one
+    per frame), as the MEGA dataset's shuffled schedule does."""
+
+    def __init__(self, lengths, rs, canvas, global_size=10, pool=32):
+        self.pool = rs.randint(0, 256, (pool, *canvas, 3), dtype=np.uint8)
+        self.lengths = list(lengths)
+        self.image_set_index, self.pattern, self.frame_seg_len = [], [], []
+        self.first = []
+        for v, n in enumerate(self.lengths):
+            for f in range(n):
+                self.first.append(len(self.image_set_index) - f)
+                self.image_set_index.append(f"val/v{v:03d}/{f:06d}")
+                self.pattern.append(f"val/v{v:03d}/%06d")
+                self.frame_seg_len.append(n)
+        self.perm = [rs.permutation(n) for n in self.lengths]
+        self.global_size = global_size
+        self.info_calls = np.zeros(len(self.image_set_index), np.int64)
+
+    def _video(self, pattern):
+        return int(pattern.split("/")[1][1:])
+
+    def load_frame(self, pattern, fid):
+        return self.pool[(7 * self._video(pattern) + fid) % len(self.pool)]
+
+    def global_ref_ids(self, idx):
+        v = self._video(self.pattern[idx])
+        f = idx - self.first[idx]
+        count = self.global_size if f == 0 else 1
+        return [int(self.perm[v][(f + j) % self.lengths[v]]) for j in range(count)]
+
+    def get_img_info(self, idx):
+        self.info_calls[idx] += 1  # once per emission of frame idx
+        return {"height": self.pool.shape[1], "width": self.pool.shape[2]}
+
+
+def run_lanes(model, ds, lanes, dev):
+    """Serve ``ds`` through ``compute_on_dataset_lockstep`` with ``lanes``
+    lanes and check the run; returns (per-step ms, emissions per step,
+    launches, run seconds). Device-agnostic, so it also runs on the CPU."""
+    import torch
+    from mega_pytorch_tpu_torch.engine import batched_inference as bi
+    from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
+    from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    kernels = (sp.stem_pool_packed, ra.flash_relation_attention,
+               ra.flash_relation_attention_pos)
+    per_step = {"stem_pool_packed": 1, "flash_relation_attention": 2,
+                "flash_relation_attention_pos": 3}
+    if dev.type != "cuda":  # plain versions: no launches
+        per_step = dict.fromkeys(per_step, 0)
+    slots = model.c.detections_per_img
+    record = dict(ms=[], dets=[], inputs=[], emitted=[], bad_counts=[],
+                  finite=torch.ones((), dtype=torch.bool, device=dev))
+    make_step = bi.make_lockstep_step
+
+    def recording_make_step(m):
+        step = make_step(m)
+
+        def run(carries, *inputs):
+            before = {k.__name__: k.launches for k in kernels}
+            t = time.perf_counter()
+            carries, dets = step(carries, *inputs)
+            sync()
+            record["ms"].append((time.perf_counter() - t) * 1e3)
+            delta = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+            if delta != per_step:
+                record["bad_counts"].append((len(record["ms"]) - 1, delta))
+            if tuple(dets.boxes.shape) != (lanes, slots, 4):
+                _fail(f"lockstep detections have shape {tuple(dets.boxes.shape)}")
+            record["finite"] = record["finite"] & torch.isfinite(dets.boxes).all() \
+                & torch.isfinite(dets.scores).all()
+            record["emitted"].append(int(inputs[-1].sum()))
+            if len(record["dets"]) < 15:
+                record["inputs"].append([a.clone() for a in inputs])
+                record["dets"].append([d.clone() for d in dets])
+            return carries, dets
+        return run
+
+    for k in kernels:
+        k.launches = 0
+    bi.make_lockstep_step = recording_make_step
+    try:
+        t0 = time.perf_counter()
+        results = bi.compute_on_dataset_lockstep(
+            model, ds, range(len(ds.image_set_index)), _Preprocessor(), lanes=lanes)
+        wall = time.perf_counter() - t0
+    finally:
+        bi.make_lockstep_step = make_step
+    launches = {k.__name__: k.launches for k in kernels}
+    steps = len(record["ms"])
+    n_frames = len(ds.image_set_index)
+    print(f"[lanes] {steps} steps of {lanes} lanes; launches {launches}; per step "
+          f"{per_step} expected, steps that differ: {record['bad_counts'][:3]}")
+    if record["bad_counts"] or steps == 0:
+        _fail("lockstep kernel launch counts per step differ from 1/2/3")
+    once = bool((ds.info_calls == 1).all()) and sorted(results) == list(range(n_frames))
+    print(f"[lanes] frames emitted exactly once: {once} ({len(results)} of "
+          f"{n_frames}; {sum(record['emitted'])} emissions)")
+    if not once or sum(record["emitted"]) != n_frames:
+        _fail("not every frame was emitted exactly once")
+    if not bool(record["finite"]):
+        _fail("non-finite lockstep detections")
+    for r in results.values():
+        if len(r["boxes"]) > slots or not np.isfinite(r["boxes"]).all():
+            _fail(f"an extracted prediction has more than {slots} or non-finite boxes")
+
+    # the first 15 steps again, from fresh carries, bit for bit
+    step = make_step(model)
+    carries = model.zero_carry(lanes, dev)
+    for i, (inputs, want) in enumerate(zip(record["inputs"], record["dets"])):
+        carries, dets = step(carries, *inputs)
+        for name, a, b in zip(dets._fields, dets, want):
+            if not torch.equal(a, b):
+                _fail(f"lockstep re-run step {i}: {name} differs")
+    print(f"[lanes] determinism: {len(record['dets'])} steps re-run from fresh "
+          f"carries: detections bit-identical ({len(record['dets']) * lanes * slots} "
+          f"slots)")
+    return record["ms"], record["emitted"], launches, wall
+
+
+def phase_lanes(smi):
+    import torch
+    from mega_pytorch_tpu_torch.models.detectors.mega import build_mega_flagship
+
+    t0 = time.perf_counter()
+    model = build_mega_flagship(*CANVAS, device="cuda", lanes=LANES,
+                                generator=torch.Generator("cuda").manual_seed(0))
+    rs = np.random.RandomState(0)
+    lengths = rs.randint(12, 41, NUM_VIDEOS)
+    ds = _SyntheticVideos(lengths, rs, CANVAS)
+    torch.cuda.synchronize()
+    print(f"[lanes] built MEGA R-101 bf16 {CANVAS[0]}x{CANVAS[1]} for "
+          f"{model.lanes} lanes in {time.perf_counter() - t0:.1f} s; {NUM_VIDEOS} "
+          f"videos of {lengths.min()}-{lengths.max()} frames, {lengths.sum()} frames")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, emitted, launches, wall = run_lanes(model, ds, model.lanes,
+                                                 torch.device("cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steady = step_ms[5:]
+    ms = statistics.median(steady)
+    full = [t for t, e in zip(step_ms[5:], emitted[5:]) if e == LANES]
+    n_frames = len(ds.image_set_index)
+    print(f"[lanes] steady state (steps 5..{len(step_ms) - 1}, {LANES} lanes, "
+          f"per-step sync): median {ms:.2f} ms/step = {LANES * 1e3 / ms:.2f} "
+          f"lane-steps/s; {len(full)} steps with all {LANES} lanes emitting, median "
+          f"{statistics.median(full) if full else float('nan'):.2f} ms/step = "
+          f"{LANES * 1e3 / statistics.median(full) if full else float('nan'):.2f} "
+          f"frames/s; first step {step_ms[0]:.1f} ms; {smi}")
+    print(f"[lanes] whole run: {n_frames} frames emitted in {wall:.2f} s = "
+          f"{n_frames / wall:.2f} frames/s (warm-up steps and idle tail "
+          f"included); peak memory {peak:.0f} MiB; {smi}")
+    return launches
+
+
+def phase_position_bias_paths():
+    """The two kernels no model path launches, through their own entry
+    points: RelationAttention(pos_emb=...) launches mode "input"; the
+    standalone bias is its own entry point. Counts are read around this."""
+    import torch
+    from mega_pytorch_tpu_torch.models.roi_heads.attention import (
+        RelationAttention,
+        position_embedding,
+    )
+    from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
+    from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(1)
+    att = RelationAttention(1024, 64, 16, True, torch.bfloat16, dev)
+    for m in att.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    att.Wg.bias.data.fill_(0.05)
+    for m in att.modules():
+        if hasattr(m, "cast_weights_"):
+            m.cast_weights_()
+    att.eval().requires_grad_(False)
+    x = _attention_inputs(gen, 1, 675, 3750, dev)
+    roi = torch.randn(1, 675, 1024, generator=gen, device=dev)
+    ref = torch.randn(1, 3750, 1024, generator=gen, device=dev)
+    with torch.inference_mode():
+        emb = position_embedding(x["rois"], x["refs"])  # (1, 675, 3750, 64) f32
+        computed = att(roi, ref, x["valid"], pos_rois=(x["rois"], x["refs"]))
+        kernels = (ra.flash_relation_attention_bias, pb.fused_position_bias)
+        for k in kernels:
+            k.launches = 0
+        got = att(roi, ref, x["valid"], pos_emb=emb)
+        bias = pb.fused_position_bias(x["rois"][0].contiguous(), x["refs"][0].contiguous(),
+                                      att.Wg.kernel.float().contiguous(),
+                                      att.Wg.bias.float().contiguous())
+        launches = {k.__name__: k.launches for k in kernels}
+        pw = (emb[0] @ att.Wg.kernel.float() + att.Wg.bias.float()).clamp_min(0.0)
+        weight_err = (bias.exp() - (pw + 1e-6).permute(2, 0, 1)).abs().max().item()
+    err = (got - computed).abs().max().item()
+    print(f"[paths] RelationAttention pos_emb (mode input) vs pos_rois (mode "
+          f"compute), N=675 M=3750: max_abs_err {err:.3e} (atol {ATOL_POS}); "
+          f"fused_position_bias vs the module's pos_emb weight: {weight_err:.3e} "
+          f"(atol {ATOL_BIAS}); launches {launches}")
+    if not err <= ATOL_POS or not weight_err <= ATOL_BIAS:
+        _fail("the position-bias paths disagree")
+    if launches != {"flash_relation_attention_bias": 1, "fused_position_bias": 1}:
+        _fail(f"position-bias path launch counts {launches}")
+    return launches
+
+
 def main():
     if not (ROOT / "mega_pytorch_tpu_torch").is_dir():
         _fail("the mega_pytorch_tpu_torch package is not beside this script")
@@ -303,8 +657,13 @@ def main():
     rows = phase_kernels()
     model, frames, gframes, outs, launches = phase_stream()
     phase_determinism(model, frames, gframes, outs)
+    del model, frames, gframes, outs
 
     import torch
+
+    torch.cuda.empty_cache()
+    lane_launches = phase_lanes(smi)
+    path_launches = phase_position_bias_paths()
 
     source = {
         "stem_pool_packed": ("cuda", "mega_pytorch_tpu_torch/csrc/stem_pool.cu",
@@ -315,11 +674,22 @@ def main():
         "flash_relation_attention_pos": (
             "cuda", "mega_pytorch_tpu_torch/csrc/relation_attention.cu",
             "mega_pytorch_tpu/ops/pallas/relation_attention.py:749"),
+        "flash_relation_attention_bias": (
+            "cuda", "mega_pytorch_tpu_torch/csrc/relation_attention.cu",
+            "mega_pytorch_tpu/ops/pallas/relation_attention.py:519"),
+        "fused_position_bias": (
+            "cuda", "mega_pytorch_tpu_torch/csrc/position_bias.cu",
+            "mega_pytorch_tpu/ops/pallas/position_bias.py:112"),
     }
+    # launches: the model path's kernels count in the lanes run (phase 6);
+    # the two kernels no model path reaches count in their own path (phase 7)
+    counts = {**lane_launches, **path_launches}
+    print(f"[result] launches per kernel: stream (1 lane) {launches}; lanes "
+          f"({LANES}) {lane_launches}; position-bias paths {path_launches}")
     table = []
     for kname, (route, src, replaces) in source.items():
         table.append(dict(name=kname, route=route, source=src, replaces=replaces,
-                          launches=launches[kname], **rows[kname]))
+                          launches=counts[kname], **rows[kname]))
     print(f"[result] {smi}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,21 @@
-// Flash relation attention, forward only, in two modes:
+// Flash relation attention, forward only, in three modes:
 //   mode 0 ("none"):    out = softmax_m(mask((q.k + u.k) / sqrt(d))) . v
 //   mode 1 ("compute"): the same with the position weight
 //                       pw = relu(Wg . sinusoid(dx, dy, dw, dh)) + 1e-6
 //                       multiplied into the exponentials, which equals adding
 //                       log pw to the logits.
+//   mode 2 ("input"):   the same with a precomputed (B, 16, N, M) f32 log
+//                       bias added to the scaled logits before masking and
+//                       the running max.
 //
 // Replaces: mega_pytorch_tpu/ops/pallas/relation_attention.py,
-// _fused_fwd_batched / _kernel with bias_mode "none" (fused_relation_attention)
-// and "compute" (fused_relation_attention_pos, _tile_bias_weight, _sincos).
+// _fused_fwd_batched / _kernel with bias_mode "none" (fused_relation_attention),
+// "compute" (fused_relation_attention_pos, _tile_bias_weight, _sincos) and
+// "input" (a bias operand, relation_attention.py:519-530 and :347-348).
 //
 // Operands: q (B, 16, N, 64), k and v (B, 16, M, 64) bf16; uk (B, 16, M) f32;
-// valid (B, M) bool; rois (B, N, 4), refs (B, M, 4) f32; params = Wg (64, 16)
-// row-major, then its bias (16,), then the 8 sinusoid frequencies, all f32.
+// valid (B, M) bool; rois (B, N, 4), refs (B, M, 4) f32 and params (the
+// position_weight.cuh block) in mode 1; bias (B, 16, N, M) f32 in mode 2.
 // Out (B, 16, N, 64) f32. QK and PV take bf16 operands with f32 sums, p is
 // rounded to bf16 before PV, the softmax recurrence is f32, invalid refs are
 // masked, and a lane with no valid ref gives exact zeros.
@@ -24,26 +28,29 @@
 // shared memory (it is shared by the groups and never reaches device
 // memory), then the groups run one after another through QK, the online
 // softmax and PV, with each group's running max, sum and accumulator kept in
-// shared memory. Sinusoids use the range-reduced sincosf: the arguments reach
-// |x| ~ 800 rad, where __sinf/__cosf lose accuracy. The products run on the
-// CUDA cores; tensor cores (wgmma) are later work.
+// shared memory. In mode "input" each thread reads its four bias values of
+// the tile straight from device memory (16 threads of a row read 256
+// consecutive bytes); the bias is read once, so staging it in shared memory
+// would save nothing. The products run on the CUDA cores; tensor cores
+// (wgmma) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "position_weight.cuh"
+
 namespace {
 
-constexpr int G = 16;    // attention groups
+using posw::G;           // attention groups
 constexpr int D = 64;    // per-group width
-constexpr int E = 64;    // position embedding width (4 channels x 2 x F)
-constexpr int F = 8;     // sinusoid frequencies
 constexpr int TN = 16;   // query rows per block
 constexpr int TM = 64;   // refs per tile
 constexpr int NT = 256;  // threads per block: 16 per query row
 constexpr int KT_STRIDE = TM + 8;  // bf16 row stride of the transposed K tile
 constexpr float NEG_INF = -1e30f;
+constexpr int MODE_NONE = 0, MODE_COMPUTE = 1, MODE_INPUT = 2;
 
 struct Layout {
   // byte offsets into dynamic shared memory
@@ -58,21 +65,14 @@ struct Layout {
   static constexpr int valid = uk + TM * 4;                     // TM f32
   static constexpr int base_bytes = valid + TM * 4;
   // "compute" mode only
-  static constexpr int params = base_bytes;                     // E*G + G + F f32
-  static constexpr int rgeo = params + (E * G + G + F) * 4;     // TN*4 f32
+  static constexpr int params = base_bytes;                     // posw::PARAMS f32
+  static constexpr int rgeo = params + posw::PARAMS * 4;        // TN*4 f32
   static constexpr int fgeo = rgeo + TN * 4 * 4;                // TM*4 f32
   static constexpr int pw = fgeo + TM * 4 * 4;                  // G*TN*TM f32
   static constexpr int pos_bytes = pw + G * TN * TM * 4;
 };
 
-__device__ __forceinline__ float4 geometry(const float* box) {
-  // (w, h, cx, cy) with the reference's 1e-3 clamp and +1 widths
-  const float w = fmaxf(box[2] - box[0] + 1.0f, 1e-3f);
-  const float h = fmaxf(box[3] - box[1] + 1.0f, 1e-3f);
-  return make_float4(w, h, 0.5f * (box[0] + box[2]), 0.5f * (box[1] + box[3]));
-}
-
-template <bool POS>
+template <int MODE>
 __global__ void __launch_bounds__(NT)
 relation_attention_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -82,7 +82,9 @@ relation_attention_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ rois,
                           const float* __restrict__ refs,
                           const float* __restrict__ params,
+                          const float* __restrict__ bias,
                           float* __restrict__ out, int N, int M) {
+  constexpr bool POS = MODE == MODE_COMPUTE;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + Layout::q);
   __nv_bfloat16* kt_s = reinterpret_cast<__nv_bfloat16*>(smem + Layout::kt);
@@ -122,10 +124,10 @@ relation_attention_kernel(const __nv_bfloat16* __restrict__ q,
     l_s[i] = 0.0f;
   }
   if (POS) {
-    for (int i = tid; i < E * G + G + F; i += NT) par_s[i] = params[i];
+    for (int i = tid; i < posw::PARAMS; i += NT) par_s[i] = params[i];
     if (tid < TN) {
       const int n = min(n0 + tid, N - 1);
-      const float4 gq = geometry(rois + ((long long)b * N + n) * 4);
+      const float4 gq = posw::geometry(rois + ((long long)b * N + n) * 4);
       reinterpret_cast<float4*>(rgeo_s)[tid] = gq;
     }
   }
@@ -138,39 +140,18 @@ relation_attention_kernel(const __nv_bfloat16* __restrict__ q,
       if (POS) {
         const int mc = min(m, M - 1);
         reinterpret_cast<float4*>(fgeo_s)[tid] =
-            geometry(refs + ((long long)b * M + mc) * 4);
+            posw::geometry(refs + ((long long)b * M + mc) * 4);
       }
     }
     if (POS) {
       __syncthreads();
       // position weight of every (row, ref) pair of the tile, all groups
-      const float* wg = par_s;           // (E, G)
-      const float* wb = par_s + E * G;   // (G,)
-      const float* fr = wb + G;          // (F,)
+      const float* wb = posw::bias_of(par_s);
       for (int pair = tid; pair < TN * TM; pair += NT) {
         const int rr = pair / TM, mm = pair % TM;
-        const float4 a = reinterpret_cast<const float4*>(rgeo_s)[rr];
-        const float4 c = reinterpret_cast<const float4*>(fgeo_s)[mm];
-        float pos[4];
-        pos[0] = logf(fabsf((a.z - c.z) / a.x) + 1e-3f);
-        pos[1] = logf(fabsf((a.w - c.w) / a.y) + 1e-3f);
-        pos[2] = logf(a.x / c.x);
-        pos[3] = logf(a.y / c.y);
         float wsum[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) wsum[g] = 0.0f;
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) {
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            float s, co;
-            sincosf(pos[ch] * fr[f], &s, &co);
-            const float* ws = wg + (ch * 2 * F + f) * G;
-            const float* wc = wg + (ch * 2 * F + F + f) * G;
-#pragma unroll
-            for (int g = 0; g < G; ++g) wsum[g] += s * ws[g] + co * wc[g];
-          }
-        }
+        posw::weight_sums(reinterpret_cast<const float4*>(rgeo_s)[rr],
+                          reinterpret_cast<const float4*>(fgeo_s)[mm], par_s, wsum);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           pw_s[(g * TN + rr) * TM + mm] = fmaxf(wsum[g] + wb[g], 0.0f) + 1e-6f;
@@ -200,6 +181,15 @@ relation_attention_kernel(const __nv_bfloat16* __restrict__ q,
       __syncthreads();
 
       // logits for row r, refs 4j .. 4j+3
+      float bias_in[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (MODE == MODE_INPUT && n0 + r < N) {
+        const float* brow = bias + (((long long)b * G + g) * N + n0 + r) * M;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = m0 + 4 * j + i;
+          if (m < M) bias_in[i] = brow[m];
+        }
+      }
       float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       const __nv_bfloat162* qrow =
           reinterpret_cast<const __nv_bfloat162*>(q_s + (g * TN + r) * D);
@@ -222,6 +212,7 @@ relation_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < 4; ++i) {
         const int mm = 4 * j + i;
         s[i] = (s[i] + uk_s[mm]) * scale;
+        if (MODE == MODE_INPUT) s[i] += bias_in[i];
         if (valid_s[mm] < 0.5f) s[i] = NEG_INF;
         tile_max = fmaxf(tile_max, s[i]);
       }
@@ -290,14 +281,30 @@ relation_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int MODE>
+cudaError_t launch_mode(dim3 grid, int smem, cudaStream_t s,
+                        const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const float* uk,
+                        const uint8_t* valid, const float* rois,
+                        const float* refs, const float* params,
+                        const float* bias, float* out, int N, int M) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      relation_attention_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  relation_attention_kernel<MODE><<<grid, NT, smem, s>>>(
+      q, k, v, uk, valid, rois, refs, params, bias, out, N, M);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int relation_attention_launch(const void* q, const void* k,
                                          const void* v, const void* uk,
                                          const void* valid, const void* rois,
                                          const void* refs, const void* params,
-                                         void* out, int B, int N, int M,
-                                         int mode, void* stream) {
+                                         const void* bias, void* out, int B,
+                                         int N, int M, int mode, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid((N + TN - 1) / TN, B);
   if (grid.x == 0 || B == 0) return (int)cudaGetLastError();
@@ -309,22 +316,19 @@ extern "C" int relation_attention_launch(const void* q, const void* k,
   const auto* rf = static_cast<const float*>(rois);
   const auto* ff = static_cast<const float*>(refs);
   const auto* pf = static_cast<const float*>(params);
+  const auto* bf = static_cast<const float*>(bias);
   auto* o = static_cast<float*>(out);
-  cudaError_t err;
-  if (mode == 1) {
-    err = cudaFuncSetAttribute(relation_attention_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Layout::pos_bytes);
-    if (err != cudaSuccess) return (int)err;
-    relation_attention_kernel<true><<<grid, NT, Layout::pos_bytes, s>>>(
-        qb, kb, vb, ukf, vd, rf, ff, pf, o, N, M);
-  } else {
-    err = cudaFuncSetAttribute(relation_attention_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Layout::base_bytes);
-    if (err != cudaSuccess) return (int)err;
-    relation_attention_kernel<false><<<grid, NT, Layout::base_bytes, s>>>(
-        qb, kb, vb, ukf, vd, rf, ff, pf, o, N, M);
+  switch (mode) {
+    case MODE_NONE:
+      return (int)launch_mode<MODE_NONE>(grid, Layout::base_bytes, s, qb, kb, vb,
+                                         ukf, vd, rf, ff, pf, bf, o, N, M);
+    case MODE_COMPUTE:
+      return (int)launch_mode<MODE_COMPUTE>(grid, Layout::pos_bytes, s, qb, kb, vb,
+                                            ukf, vd, rf, ff, pf, bf, o, N, M);
+    case MODE_INPUT:
+      return (int)launch_mode<MODE_INPUT>(grid, Layout::base_bytes, s, qb, kb, vb,
+                                          ukf, vd, rf, ff, pf, bf, o, N, M);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

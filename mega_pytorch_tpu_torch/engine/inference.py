@@ -1,7 +1,8 @@
-"""Streaming MEGA inference, one video lane (counterpart of the per-lane step
-``one_lane`` in ``mega_pytorch_tpu/engine/batched_inference.py``).
+"""Streaming MEGA inference (counterpart of ``mega_pytorch_tpu/engine/inference.py``).
 
-Each ``serve_step``:
+``serve_step`` is one lane's step: the one-lane case of the lockstep step
+(``batched_inference.make_lockstep_step``), so a single stream and L lockstep
+lanes run one per-frame code path. Each step
   1. stacks the local and the global uint8 frame and normalizes them;
   2. runs ``precompute_pair`` (one backbone pass over both);
   3. resets the carry from the local frame (video start) or pushes it;
@@ -9,7 +10,8 @@ Each ``serve_step``:
   5. runs ``detect_key`` and keeps its carry (the memory pushes) only on an
      emitted frame.
 ``run_video`` schedules reset, global updates and emission over one video
-the way the lockstep engine schedules one lane.
+the way the lockstep engine schedules one lane. ``compute_on_dataset`` runs
+whole videos of a dataset through the lockstep engine.
 """
 
 from __future__ import annotations
@@ -19,33 +21,37 @@ from typing import Iterator, NamedTuple
 import numpy as np
 import torch
 
-from ..data.transforms import normalize_u8_frames, s2d_pack_frames
+from ..data.transforms import s2d_pack_frames
 
 
 class StepOutput(NamedTuple):
-    carry: object  # MEGACarry
+    carry: object  # MEGACarry of one lane, without the lane dimension
     dets: object  # Detections, batch of 1
     emitted: bool
 
 
-@torch.inference_mode()
 def serve_step(model, carry, frame, size, gframe, gsize, reset: bool,
                gmask: bool, emit: bool) -> StepOutput:
-    """One lane step. frame/gframe (H, W, C) uint8 tensors on the model's
-    device (C = 48 for s2d(4)-packed frames), size/gsize (2,) f32 [h, w]."""
-    sizes = torch.stack([size, gsize]).float()
-    both = normalize_u8_frames(torch.stack([frame, gframe]), sizes)
-    entry, g_pooled, g_valid = model.precompute_pair(both, sizes)
-    if reset or carry is None:
-        carry = model.init_carry(entry, sizes[0])
+    """One lane step. carry: a one-lane MEGACarry without the lane dimension,
+    or None before the first step; frame/gframe (H, W, C) uint8 tensors on
+    the model's device (C = 48 for s2d(4)-packed frames), size/gsize (2,)
+    f32 [h, w]."""
+    from .batched_inference import make_lockstep_step
+
+    dev = frame.device
+    if carry is None:
+        carries, reset = model.zero_carry(1, dev), True
     else:
-        carry = model.push_carry(carry, entry, sizes[0])
-    if gmask:
-        carry = model.apply_global(carry, g_pooled, g_valid)
-    new_carry, dets = model.detect_key(carry)
-    if emit:
-        carry = new_carry
-    return StepOutput(carry, dets, emit)
+        carries = _map(carry, lambda x: x[None])
+    flags = torch.tensor([[reset], [gmask], [emit]], device=dev)
+    carries, dets = make_lockstep_step(model)(
+        carries, frame[None], size[None], gframe[None], gsize[None], *flags)
+    return StepOutput(_map(carries, lambda x: x[0]), dets, emit)
+
+
+def _map(carry, fn):
+    return carry._make(tuple(fn(y) for y in x) if isinstance(x, tuple) else fn(x)
+                       for x in carry)
 
 
 def video_schedule(num_frames: int, warmup: int, global_size: int):
@@ -116,3 +122,38 @@ def run_video(model, frames: np.ndarray, global_frames: np.ndarray,
                          gidx is not None, emit)
         carry = out.carry
         yield out
+
+
+def _extract(dets, size, orig_hw) -> dict:
+    """Padded Detections (numpy, batch of 1) → numpy dict in original image
+    coordinates."""
+    valid = np.asarray(dets.valid[0])
+    boxes = np.asarray(dets.boxes[0])[valid]
+    oh, ow = float(size[0]), float(size[1])
+    h0, w0 = orig_hw
+    boxes = boxes * np.array([w0 / ow, h0 / oh, w0 / ow, h0 / oh], np.float32)
+    return {
+        "boxes": boxes,
+        "scores": np.asarray(dets.scores[0])[valid],
+        "labels": np.asarray(dets.labels[0])[valid],
+    }
+
+
+def compute_on_dataset(model, dataset, indices, preprocessor, method: str,
+                       logger=None, log_period: int = 100, lanes: int = 1) -> dict:
+    """Streaming inference over ``indices`` (whole videos, ascending) →
+    {dataset_idx: prediction dict in original image coordinates}.
+
+    MEGA runs through the lockstep engine with ``lanes`` lanes; one lane is
+    the serial protocol (its detections equal the JAX serial engine's, which
+    the JAX package's lockstep-versus-serial tests pin). The serial
+    ``StreamingInferencer`` and the other methods are not ported yet
+    (ROADMAP.md, Queue 1)."""
+    if method != "mega":
+        raise NotImplementedError(
+            f"streaming {method!r} is not ported yet (ROADMAP.md, Queue 1)")
+    from .batched_inference import compute_on_dataset_lockstep
+
+    return compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
+                                       lanes=lanes, logger=logger,
+                                       log_period=log_period)

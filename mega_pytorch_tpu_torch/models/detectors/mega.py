@@ -2,14 +2,17 @@
 ``mega_pytorch_tpu/models/detectors/mega.py`` and the streaming parts of
 ``rdn.py``/``rcnn.py``).
 
-Per frame, ``precompute_pair`` runs ONE backbone/RPN/res5 pass over the
-stacked (local, global) pair and yields the local frame's window entry
-(ref and key proposals with their fc0 ROI features) and the global frame's
-cache entry. ``detect_key`` runs no convolution: the merged global
-enhancement, three local/memory attention stages, the predictor and the
-detection post-processing. The streaming state is an explicit ``MEGACarry``
-of ring buffers with the newest frame last; pushes build new tensors rather
-than rolling in place, as the JAX package does.
+Every method works on L video lanes at once (the JAX package vmaps its
+per-lane methods; here the lane is a leading dimension of every tensor).
+Per step, ``precompute_pair`` runs ONE backbone/RPN/res5 pass over the 2L
+stacked (local, global) frames and yields each lane's window entry (ref and
+key proposals with their fc0 ROI features) and global cache entry; the RPN
+post-processing runs once over the L local and once over the L global
+frames. ``detect_key`` runs no convolution: the merged global enhancement,
+three local/memory attention stages, the predictor and the detection
+post-processing. The streaming state is an explicit ``MEGACarry`` of ring
+buffers with the newest frame last; pushes build new tensors rather than
+rolling in place, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -82,25 +85,25 @@ class VidConfig:
 
 
 class MEGACarry(NamedTuple):
-    """Streaming state; window buffers hold the newest frame last."""
+    """Streaming state of L lanes; window buffers hold the newest frame last."""
 
-    rois: torch.Tensor  # (T, 75, 4) ref proposals
-    roi_valid: torch.Tensor  # (T, 75)
-    feats: torch.Tensor  # (T, 75, D) fc0 features
-    key_rois: torch.Tensor  # (T, K, 4)
-    key_valid: torch.Tensor  # (T, K)
-    key_feats: torch.Tensor  # (T, K, D)
-    sizes: torch.Tensor  # (T, 2)
-    mem_rois: tuple  # per stage (S, n_i, 4), n_0 = 75, else advanced_num
-    mem_feats: tuple  # per stage (S, n_i, D)
-    mem_valid: tuple  # per stage (S, n_i)
-    g_feats: torch.Tensor  # (Gsize, 75, D)
-    g_valid: torch.Tensor  # (Gsize, 75)
+    rois: torch.Tensor  # (L, T, 75, 4) ref proposals
+    roi_valid: torch.Tensor  # (L, T, 75)
+    feats: torch.Tensor  # (L, T, 75, D) fc0 features
+    key_rois: torch.Tensor  # (L, T, K, 4)
+    key_valid: torch.Tensor  # (L, T, K)
+    key_feats: torch.Tensor  # (L, T, K, D)
+    sizes: torch.Tensor  # (L, T, 2)
+    mem_rois: tuple  # per stage (L, S, n_i, 4), n_0 = 75, else advanced_num
+    mem_feats: tuple  # per stage (L, S, n_i, D)
+    mem_valid: tuple  # per stage (L, S, n_i)
+    g_feats: torch.Tensor  # (L, Gsize, 75, D)
+    g_valid: torch.Tensor  # (L, Gsize, 75)
 
 
 def _push(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """Drop the oldest slot, append ``new`` as the newest."""
-    return torch.cat([buf[1:], new[None]], 0)
+    """Per lane, drop the oldest slot and append ``new`` as the newest."""
+    return torch.cat([buf[:, 1:], new[:, None]], 1)
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -165,84 +168,108 @@ class GeneralizedRCNNMEGA(nn.Module):
         return RPNSizes(c.pre_nms_top_n_test, c.post_nms_top_n_test,
                         c.rpn_nms_thresh, c.rpn_min_size)
 
-    def _entry(self, enhanced0, objectness, deltas, anchors, sizes):
+    def _entry(self, enhanced, objectness, deltas, anchors, sizes):
+        """Window entries of L frames: (L, H, W, C) maps, (L, A) objectness."""
         ext = self.extractor
         ref_props, key_props, prefix = shared_ref_key_postprocess(
             objectness, deltas, anchors, sizes, self._ref_sizes(), self._key_sizes())
-        key_feats = ext.fc0(ext.pool_flat(enhanced0, key_props.boxes[0]))
+        key_feats = ext.fc0(ext.pool_flat(enhanced, key_props.boxes))
         if prefix:
-            ref_feats = key_feats[: self.c.ref_post_nms_top_n]
+            ref_feats = key_feats[:, : self.c.ref_post_nms_top_n]
         else:
-            ref_feats = ext.fc0(ext.pool_flat(enhanced0, ref_props.boxes[0]))
+            ref_feats = ext.fc0(ext.pool_flat(enhanced, ref_props.boxes))
         return {
-            "rois": ref_props.boxes[0], "roi_valid": ref_props.valid[0],
+            "rois": ref_props.boxes, "roi_valid": ref_props.valid,
             "feats": ref_feats,
-            "key_rois": key_props.boxes[0], "key_valid": key_props.valid[0],
+            "key_rois": key_props.boxes, "key_valid": key_props.valid,
             "key_feats": key_feats,
         }
 
+    def _shapes(self) -> dict:
+        """Per-lane (shape, dtype) of every carry field."""
+        c, v = self.c, self.v
+        t, s, g = v.all_frame_interval, v.memory_size, v.global_size
+        bn, kn, d = c.ref_post_nms_top_n, c.post_nms_top_n_test, c.mlp_dim
+        mem_n = [bn] + [int(bn * v.ratio)] * (v.base_stage - 1)
+        f32, b8 = torch.float32, torch.bool
+        return dict(
+            rois=((t, bn, 4), f32), roi_valid=((t, bn), b8), feats=((t, bn, d), f32),
+            key_rois=((t, kn, 4), f32), key_valid=((t, kn), b8),
+            key_feats=((t, kn, d), f32), sizes=((t, 2), f32),
+            mem_rois=tuple(((s, n, 4), f32) for n in mem_n),
+            mem_feats=tuple(((s, n, d), f32) for n in mem_n),
+            mem_valid=tuple(((s, n), b8) for n in mem_n),
+            g_feats=((g, bn, d), f32), g_valid=((g, bn), b8),
+        )
+
     # -- streaming ------------------------------------------------------------
     def precompute(self, images: torch.Tensor, sizes: torch.Tensor) -> dict:
-        """One normalized frame (1, H, W, C) → its window entry."""
+        """Normalized frames (L, H, W, C), one per lane → their window entries."""
         feats = self.backbone(images)
         objectness, deltas = self.rpn(feats)
         anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
         enhanced = self.extractor.enhance_features(feats)
-        return self._entry(enhanced[0], objectness, deltas, anchors, sizes)
+        return self._entry(enhanced, objectness, deltas, anchors, sizes)
 
     def precompute_global(self, images: torch.Tensor, sizes: torch.Tensor):
-        """One normalized global frame → (fc0 features, validity) of its 75
-        ref proposals."""
+        """Normalized global frames (L, H, W, C) → (fc0 features (L, 75, D),
+        validity (L, 75)) of their 75 ref proposals."""
         feats = self.backbone(images)
         objectness, deltas = self.rpn(feats)
         anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
         props = rpn_postprocess(objectness, deltas, anchors, sizes, self._ref_sizes())
-        pooled = self.extractor.precompute_ref(feats[0], props.boxes[0])
-        return pooled, props.valid[0]
+        return self.extractor.precompute_ref(feats, props.boxes), props.valid
 
     def precompute_pair(self, images: torch.Tensor, sizes: torch.Tensor):
-        """Stacked normalized pair (2, H, W, C) — row 0 local, row 1 global —
-        through ONE backbone/RPN/res5 pass → (entry, g_pooled, g_valid)."""
-        feats = self.backbone(images)  # (2, H', W', 1024)
+        """Stacked normalized pairs (L, 2, H, W, C) — [:, 0] local, [:, 1]
+        global — with sizes (L, 2, 2) through ONE backbone/RPN/res5 pass over
+        the 2L frames → (entry, g_pooled (L, 75, D), g_valid (L, 75))."""
+        lanes = images.shape[0]
+        feats = self.backbone(images.flatten(0, 1))  # (2L, H', W', 1024)
         objectness, deltas = self.rpn(feats)
         anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
-        enhanced = self.extractor.enhance_features(feats)
-        entry = self._entry(enhanced[0], objectness[:1], deltas[:1], anchors,
-                            sizes[:1])
-        g_props = rpn_postprocess(objectness[1:], deltas[1:], anchors, sizes[1:],
+        enhanced = self.extractor.enhance_features(feats).unflatten(0, (lanes, 2))
+        objectness = objectness.unflatten(0, (lanes, 2))
+        deltas = deltas.unflatten(0, (lanes, 2))
+        entry = self._entry(enhanced[:, 0], objectness[:, 0], deltas[:, 0], anchors,
+                            sizes[:, 0])
+        g_props = rpn_postprocess(objectness[:, 1], deltas[:, 1], anchors, sizes[:, 1],
                                   self._ref_sizes())
         ext = self.extractor
-        g_pooled = ext.fc0(ext.pool_flat(enhanced[1], g_props.boxes[0]))
-        return entry, g_pooled, g_props.valid[0]
+        g_pooled = ext.fc0(ext.pool_flat(enhanced[:, 1], g_props.boxes))
+        return entry, g_pooled, g_props.valid
 
     def apply_global(self, carry: MEGACarry, pooled, valid) -> MEGACarry:
         return carry._replace(g_feats=_push(carry.g_feats, pooled),
                               g_valid=_push(carry.g_valid, valid))
 
+    def zero_carry(self, lanes: int, device) -> MEGACarry:
+        """All-zero carries of ``lanes`` lanes, as zero-stride views: the
+        state before a lane's first step (which resets it), and the empty
+        memory and global cache of a fresh carry. Every push and select
+        builds new tensors, so nothing writes to these views."""
+        def zeros(spec):
+            if isinstance(spec[1], torch.dtype):
+                shape, dtype = spec
+                return torch.zeros((), dtype=dtype, device=device).expand(lanes, *shape)
+            return tuple(zeros(x) for x in spec)  # per-stage fields
+
+        return MEGACarry(**{k: zeros(x) for k, x in self._shapes().items()})
+
     def init_carry(self, entry: dict, size: torch.Tensor) -> MEGACarry:
-        """A fresh carry whose window holds ``entry`` in every slot."""
-        t, s, g = self.v.all_frame_interval, self.v.memory_size, self.v.global_size
-        bn = self.c.ref_post_nms_top_n
-        an = int(bn * self.v.ratio)
-        d = self.c.mlp_dim
-        dev = entry["feats"].device
+        """Fresh carries whose window holds each lane's ``entry`` in every
+        slot (broadcast views of ``entry``), with empty memory and global
+        cache."""
+        t = self.v.all_frame_interval
 
         def tile(a):
-            return a[None].expand(t, *a.shape).clone()
+            return a[:, None].expand(a.shape[0], t, *a.shape[1:])
 
-        mem_n = [bn] + [an] * (self.v.base_stage - 1)
-        f32 = dict(dtype=torch.float32, device=dev)
-        return MEGACarry(
+        return self.zero_carry(size.shape[0], size.device)._replace(
             rois=tile(entry["rois"]), roi_valid=tile(entry["roi_valid"]),
             feats=tile(entry["feats"]), key_rois=tile(entry["key_rois"]),
             key_valid=tile(entry["key_valid"]), key_feats=tile(entry["key_feats"]),
             sizes=tile(size),
-            mem_rois=tuple(torch.zeros((s, n, 4), **f32) for n in mem_n),
-            mem_feats=tuple(torch.zeros((s, n, d), **f32) for n in mem_n),
-            mem_valid=tuple(torch.zeros((s, n), dtype=torch.bool, device=dev)
-                            for n in mem_n),
-            g_feats=torch.zeros((g, bn, d), **f32),
-            g_valid=torch.zeros((g, bn), dtype=torch.bool, device=dev),
         )
 
     def push_carry(self, carry: MEGACarry, entry: dict, size) -> MEGACarry:
@@ -261,25 +288,21 @@ class GeneralizedRCNNMEGA(nn.Module):
         return self.apply_global(carry, pooled, valid)
 
     def detect_key(self, carry: MEGACarry):
-        """Detect at the key slot → (carry with the LRM pushes, Detections)."""
+        """Detect at every lane's key slot → (carry with the LRM pushes,
+        Detections (L, ...))."""
         c, v = self.c, self.v
         k = v.key_frame_location
-        t = v.all_frame_interval
-        bn = c.ref_post_nms_top_n
-        key_rois, key_valid = carry.key_rois[k], carry.key_valid[k]
-        window = RefSet(carry.rois.reshape(t * bn, 4),
-                        carry.feats.reshape(t * bn, -1),
-                        carry.roi_valid.reshape(t * bn))
-        lrm = tuple(
-            RefSet(carry.mem_rois[i].reshape(-1, 4),
-                   carry.mem_feats[i].reshape(-1, carry.mem_feats[i].shape[-1]),
-                   carry.mem_valid[i].reshape(-1))
-            for i in range(v.base_stage)
-        )
+        key_rois, key_valid = carry.key_rois[:, k], carry.key_valid[:, k]
+
+        def refs(rois, feats, valid):
+            return RefSet(rois.flatten(1, 2), feats.flatten(1, 2), valid.flatten(1, 2))
+
+        window = refs(carry.rois, carry.feats, carry.roi_valid)
+        lrm = tuple(refs(carry.mem_rois[i], carry.mem_feats[i], carry.mem_valid[i])
+                    for i in range(v.base_stage))
         x, pushes = self.extractor.extract_test(
-            carry.key_feats[k], key_rois, window, lrm,
-            carry.g_feats.reshape(-1, carry.g_feats.shape[-1]),
-            carry.g_valid.reshape(-1),
+            carry.key_feats[:, k], key_rois, window, lrm,
+            carry.g_feats.flatten(1, 2), carry.g_valid.flatten(1, 2),
         )
         carry = carry._replace(
             mem_rois=tuple(_push(carry.mem_rois[i], p.rois) for i, p in enumerate(pushes)),
@@ -288,28 +311,31 @@ class GeneralizedRCNNMEGA(nn.Module):
         )
         class_logits, box_reg = self.predictor(x)
         dets = postprocess_detections(
-            class_logits[None], box_reg[None], key_rois[None], key_valid[None],
-            carry.sizes[k][None], bbox_reg_weights=c.bbox_reg_weights,
-            score_thresh=c.score_thresh, nms_thresh=c.nms_thresh,
-            detections_per_img=c.detections_per_img,
+            class_logits, box_reg, key_rois, key_valid, carry.sizes[:, k],
+            bbox_reg_weights=c.bbox_reg_weights, score_thresh=c.score_thresh,
+            nms_thresh=c.nms_thresh, detections_per_img=c.detections_per_img,
         )
         return carry, dets
 
-    def test_step(self, carry: MEGACarry, pair: torch.Tensor, sizes: torch.Tensor):
-        """Steady state: push the pair's local frame, apply its global frame,
-        detect at the key slot."""
-        entry, g_pooled, g_valid = self.precompute_pair(pair, sizes)
-        carry = self.push_carry(carry, entry, sizes[0])
+    def test_step(self, carry: MEGACarry, pairs: torch.Tensor, sizes: torch.Tensor):
+        """Steady state: push each pair's local frame, apply its global frame,
+        detect at the key slot. pairs (L, 2, H, W, C), sizes (L, 2, 2)."""
+        entry, g_pooled, g_valid = self.precompute_pair(pairs, sizes)
+        carry = self.push_carry(carry, entry, sizes[:, 0])
         carry = self.apply_global(carry, g_pooled, g_valid)
         return self.detect_key(carry)
 
 
 def build_mega_flagship(canvas_h: int, canvas_w: int, device="cuda",
-                        generator: torch.Generator | None = None):
+                        generator: torch.Generator | None = None, lanes: int = 1):
     """MEGA R-101 C4 in bf16 as the JAX ``build_mega_flagship`` configures it
     (3 stages, window 25 with the key at slot 12), its weights drawn on
     ``device`` from ``generator``. Frames arrive s2d(4)-packed
-    (canvas_h/4, canvas_w/4, 48). Returns the model in eval mode."""
+    (canvas_h/4, canvas_w/4, 48). Returns the model in eval mode.
+
+    ``lanes`` is the lockstep lane count it is built for (the JAX package's
+    ``batch``; 12 in its bench): it sizes nothing in the weights, which serve
+    any lane count, and is kept as ``model.lanes`` for the engines."""
     if canvas_h % 16 or canvas_w % 16:
         raise ValueError("canvas sides must be multiples of 16")
     c = RCNNConfig(depth="R-101", compute_dtype="bfloat16")
@@ -320,4 +346,5 @@ def build_mega_flagship(canvas_h: int, canvas_w: int, device="cuda",
         generator = torch.Generator(device).manual_seed(0)
     model.init_weights(generator)
     model.cast_weights_()
+    model.lanes = lanes
     return model.eval().requires_grad_(False)

@@ -3,8 +3,11 @@
 
 logits = (q.k + u.k) / sqrt(d) [+ log position weight], masked over invalid
 refs; values are each ref's feature projected per group by ``Wv_kernel``
-(g, feat, d), mixed back to ``feat`` columns. On a CUDA tensor every call
-launches the flash kernel: mode "compute" when ``pos_rois`` is given, mode
+(g, feat, d), mixed back to ``feat`` columns. Every operand has a leading
+lane dimension, which the kernels take as their batch (the JAX module runs
+per lane under vmap). On a CUDA tensor every call launches the flash kernel:
+mode "compute" when ``pos_rois`` is given, mode "input" with the log bias of
+a ``pos_emb`` (log(relu(pos_emb . Wg + b) + 1e-6), a plain product), mode
 "none" otherwise, whatever the number of refs. On a CPU tensor the einsum
 path runs with the bf16-sinusoid position bias, as the JAX module does there.
 """
@@ -16,14 +19,31 @@ import math
 import torch
 from torch import nn
 
-from ...ops.kernels.position_bias import reference_position_bias
+from ...ops.kernels.position_bias import (
+    _log_ratios,
+    bias_freq_scales,
+    reference_position_bias,
+)
 from ...ops.kernels.relation_attention import (
     flash_relation_attention,
+    flash_relation_attention_bias,
     flash_relation_attention_pos,
 )
 from ..layers import Dense
 
 NEG_INF = -1e30
+
+
+def position_embedding(rois: torch.Tensor, ref_rois: torch.Tensor,
+                       feat_dim: int = 64) -> torch.Tensor:
+    """(..., N, 4) x (..., M, 4) → (..., N, M, feat_dim) f32 sinusoidal
+    embedding of the pairwise geometry, laid out (channel, sin|cos, freq) as
+    the rows of ``Wg`` (the JAX ``position_embedding``)."""
+    pos = torch.stack(_log_ratios(rois.float(), ref_rois.float()), -1)  # (..., N, M, 4)
+    freqs = torch.tensor(bias_freq_scales(feat_dim // 8), dtype=torch.float32,
+                         device=pos.device)
+    div = pos[..., None] * freqs  # (..., N, M, 4, F)
+    return torch.cat([torch.sin(div), torch.cos(div)], -1).flatten(-2)
 
 
 class _Wg(nn.Module):
@@ -61,52 +81,62 @@ class RelationAttention(nn.Module):
         self.u.data = self.u.data.to(self.dtype)
         self.Wv_kernel.data = self.Wv_kernel.data.to(self.dtype)
 
-    def forward(self, roi_feat, ref_feat, ref_valid=None, pos_rois=None):
-        """roi_feat (N, D), ref_feat (M, D), ref_valid (M,) bool,
-        pos_rois = (cur_rois (N, 4), ref_rois (M, 4)) → (N, D) f32."""
+    def forward(self, roi_feat, ref_feat, ref_valid=None, pos_rois=None,
+                pos_emb=None):
+        """Lanes lead every operand: roi_feat (L, N, D), ref_feat (L, M, D),
+        ref_valid (L, M) bool, and either pos_rois = (cur_rois (L, N, 4),
+        ref_rois (L, M, 4)) or pos_emb (L, N, M, E) → (L, N, D) f32."""
         g = self.groups
         d = self.feat_dim // g
         dt = self.dtype
-        m = ref_feat.shape[0]
-        q = self.Wq(roi_feat).reshape(-1, g, d)
-        k = self.Wk(ref_feat).reshape(-1, g, d)
-        uk = torch.einsum("gd,mgd->gm", self.u.to(dt).float(), k.float())
-        # per-group values: (M, g, d), f32 sums over dt operands
-        v = torch.einsum("mf,gfd->mgd", ref_feat.to(dt).float(),
+        lanes, m = ref_feat.shape[:2]
+        q = self.Wq(roi_feat).reshape(lanes, -1, g, d).transpose(1, 2)  # (L, g, N, d)
+        k = self.Wk(ref_feat).reshape(lanes, m, g, d).transpose(1, 2)  # (L, g, M, d)
+        uk = torch.einsum("gd,lgmd->lgm", self.u.to(dt).float(), k.float())
+        # per-group values: (L, g, M, d), f32 sums over dt operands
+        v = torch.einsum("lmf,gfd->lgmd", ref_feat.to(dt).float(),
                          self.Wv_kernel.to(dt).float())
         if ref_valid is None:
-            ref_valid = torch.ones((m,), dtype=torch.bool, device=k.device)
+            ref_valid = torch.ones((lanes, m), dtype=torch.bool, device=k.device)
+        log_bias = None
         if self.use_position and pos_rois is None:
-            raise ValueError("use_position needs pos_rois (pos_emb is not ported)")
+            if pos_emb is None:
+                raise ValueError("use_position needs pos_rois or pos_emb")
+            pw = (pos_emb.float() @ self.Wg.kernel.float() + self.Wg.bias.float())
+            log_bias = torch.log(pw.clamp_min(0.0) + 1e-6).permute(0, 3, 1, 2)
 
         if roi_feat.device.type == "cuda":
-            qt = q.transpose(0, 1)[None].to(torch.bfloat16).contiguous()
-            kt = k.transpose(0, 1)[None].to(torch.bfloat16).contiguous()
-            vt = v.transpose(0, 1)[None].to(torch.bfloat16).contiguous()
-            ukb = uk[None].contiguous()
-            valid = ref_valid[None].contiguous()
-            if self.use_position:
+            def bf16(x):
+                return x.to(torch.bfloat16).contiguous()
+
+            args = (bf16(q), bf16(k), bf16(v), uk.contiguous())
+            valid = ref_valid.contiguous()
+            if log_bias is not None:
+                out = flash_relation_attention_bias(*args, log_bias.contiguous(), valid)
+            elif self.use_position:
                 out = flash_relation_attention_pos(
-                    qt, kt, vt, ukb, pos_rois[0][None].float().contiguous(),
-                    pos_rois[1][None].float().contiguous(),
+                    *args, pos_rois[0].float().contiguous(),
+                    pos_rois[1].float().contiguous(),
                     self.Wg.kernel.float().contiguous(),
                     self.Wg.bias.float().contiguous(), valid,
                 )
             else:
-                out = flash_relation_attention(qt, kt, vt, ukb, valid)
-            return out[0].transpose(0, 1).reshape(-1, self.feat_dim) + self.Wv_bias.float()
+                out = flash_relation_attention(*args, valid)
+            return out.transpose(1, 2).reshape(lanes, -1, self.feat_dim) + self.Wv_bias.float()
 
-        aff = torch.einsum("ngd,mgd->gnm", q.float(), k.float())
-        aff = (aff + uk[:, None, :]) * (1.0 / math.sqrt(d))
-        if self.use_position:
+        aff = torch.einsum("lgnd,lgmd->lgnm", q.float(), k.float())
+        aff = (aff + uk[:, :, None, :]) * (1.0 / math.sqrt(d))
+        if self.use_position and log_bias is None:
             log_bias = reference_position_bias(
                 pos_rois[0], pos_rois[1], self.Wg.kernel, self.Wg.bias,
                 self.embed_dim, sin_dtype=torch.bfloat16,
             )
+        if log_bias is not None:
             aff = log_bias + aff
-        aff = torch.where(ref_valid[None, None, :], aff, torch.full_like(aff, NEG_INF))
-        soft = torch.softmax(aff, dim=2)
-        if not bool(ref_valid.any()):
-            soft = torch.zeros_like(soft)
-        mixed = torch.einsum("gnm,mgd->ngd", soft.to(dt).float(), v.to(dt).float())
-        return mixed.reshape(-1, self.feat_dim) + self.Wv_bias.float()
+        aff = torch.where(ref_valid[:, None, None, :], aff, torch.full_like(aff, NEG_INF))
+        soft = torch.softmax(aff, dim=-1)
+        # a lane with no valid ref attends to nothing: zeros, not a uniform softmax
+        soft = torch.where(ref_valid.any(-1)[:, None, None, None], soft,
+                           torch.zeros_like(soft))
+        mixed = torch.einsum("lgnm,lgmd->lngd", soft.to(dt).float(), v.to(dt).float())
+        return mixed.reshape(lanes, -1, self.feat_dim) + self.Wv_bias.float()

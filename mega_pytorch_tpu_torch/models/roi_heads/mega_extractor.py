@@ -2,7 +2,9 @@
 ``mega_pytorch_tpu/models/roi_heads/mega_extractor.py``): dilated res5 +
 1x1 reduce, ROIAlign + fc0, the merged global enhancement, the local/memory
 attention stages with the long-range-memory pushes, and the global residual
-stages. ``extract_train`` is not ported."""
+stages. Every tensor has a leading lane dimension (the JAX module runs per
+lane under vmap), so ROI sets concatenate along dim 1. ``extract_train`` is
+not ported."""
 
 from __future__ import annotations
 
@@ -18,14 +20,13 @@ from .attention import RelationAttention
 
 
 class RefSet(NamedTuple):
-    rois: torch.Tensor  # (M, 4)
-    feats: torch.Tensor  # (M, D)
-    valid: torch.Tensor  # (M,)
+    rois: torch.Tensor  # (L, M, 4)
+    feats: torch.Tensor  # (L, M, D)
+    valid: torch.Tensor  # (L, M)
 
 
 def cat_refs(a: RefSet, b: RefSet) -> RefSet:
-    return RefSet(torch.cat([a.rois, b.rois], 0), torch.cat([a.feats, b.feats], 0),
-                  torch.cat([a.valid, b.valid], 0))
+    return RefSet(*(torch.cat([x, y], 1) for x, y in zip(a, b)))
 
 
 class MEGAFeatureExtractor(nn.Module):
@@ -73,19 +74,22 @@ class MEGAFeatureExtractor(nn.Module):
         return x
 
     def pool_flat(self, feat_map: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-        """(H, W, C) map, (R, 4) rois → (R, res*res*C) f32, (h, w, c) order."""
+        """(L, H, W, C) maps, (L, R, 4) rois → (L, R, res*res*C) f32, (h, w, c)
+        order."""
         pooled = roi_align(feat_map.float(), rois, self.spatial_scale,
                            self.resolution, self.resolution, self.sampling_ratio)
-        return pooled.reshape(rois.shape[0], -1)
+        return pooled.flatten(2)
 
     def fc0(self, flat: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.l_fcs(0)(flat).float())
 
     def _distill(self, arr: torch.Tensor, frames: int) -> torch.Tensor:
-        """Top advanced_num of each base_num block (score-ordered slots)."""
-        rest = arr.shape[1:]
-        return arr.reshape(frames, self.base_num, *rest)[:, :self.advanced_num].reshape(
-            frames * self.advanced_num, *rest)
+        """(L, frames * base_num, ...) → the top advanced_num of each base_num
+        block (score-ordered slots), (L, frames * advanced_num, ...)."""
+        lanes, _, *rest = arr.shape
+        blocks = arr.reshape(lanes, frames, self.base_num, *rest)
+        return blocks[:, :, :self.advanced_num].reshape(
+            lanes, frames * self.advanced_num, *rest)
 
     def update_lm(self, feats, g_feats, g_valid, index: int = 0):
         return feats + self.g_attn(index)(feats, g_feats, g_valid)
@@ -99,28 +103,30 @@ class MEGAFeatureExtractor(nn.Module):
         return feats
 
     def precompute_ref(self, c4: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-        """(H, W, 1024) C4 map of one frame → pooled fc0 features of rois."""
-        return self.fc0(self.pool_flat(self.enhance_features(c4[None])[0], rois))
+        """(L, H, W, 1024) C4 maps, one frame per lane → pooled fc0 features
+        of rois (L, R, 4)."""
+        return self.fc0(self.pool_flat(self.enhance_features(c4), rois))
 
     def extract_test(self, x, cur_rois, window: RefSet, lrm: tuple, g_feats, g_valid):
-        """x (K, D) key ROI features, cur_rois (K, 4), window (T*base_num)
-        refs, lrm per-stage RefSets, global cache (Gsize*base_num) →
-        (x, per-stage RefSets pushed into the LRM this frame)."""
-        t = window.rois.shape[0] // self.base_num
+        """x (L, K, D) key ROI features, cur_rois (L, K, 4), window
+        (L, T*base_num) refs, lrm per-stage RefSets, global cache
+        (L, Gsize*base_num) → (x, per-stage RefSets pushed into the LRM this
+        frame)."""
+        t = window.rois.shape[1] // self.base_num
         if self.global_enable:
             # one merged global-enhance call for the key set and the window
-            n_q = x.shape[0]
-            both = self.update_lm(torch.cat([x, window.feats], 0), g_feats, g_valid)
-            x, x_ref = both[:n_q], both[n_q:]
+            n_q = x.shape[1]
+            both = self.update_lm(torch.cat([x, window.feats], 1), g_feats, g_valid)
+            x, x_ref = both[:, :n_q], both[:, n_q:]
             x_ref_dis = self._distill(x_ref, t)
         else:
             x_ref = window.feats
             x_ref_dis = self._distill(window.feats, t)
         rois_dis = self._distill(window.rois, t)
         val_dis = self._distill(window.valid, t)
-        n_key = cur_rois.shape[0]
-        cur_rois_full = torch.cat([cur_rois, rois_dis], 0)
-        feats = torch.cat([x, x_ref_dis], 0)
+        n_key = cur_rois.shape[1]
+        cur_rois_full = torch.cat([cur_rois, rois_dis], 1)
+        feats = torch.cat([x, x_ref_dis], 1)
 
         pushes = []
         for i in range(self.stage):
@@ -129,15 +135,14 @@ class MEGAFeatureExtractor(nn.Module):
                 refs = RefSet(window.rois, x_ref, window.valid)
                 cur_r, push_n = cur_rois_full, self.base_num
             elif not last:
-                refs = RefSet(rois_dis, feats[n_key:], val_dis)
+                refs = RefSet(rois_dis, feats[:, n_key:], val_dis)
                 cur_r, push_n = cur_rois_full, self.advanced_num
             else:
-                refs = RefSet(rois_dis, feats[n_key:], val_dis)
+                refs = RefSet(rois_dis, feats[:, n_key:], val_dis)
                 cur_r, push_n = cur_rois, self.advanced_num
-                feats = feats[:n_key]
+                feats = feats[:, :n_key]
             # the memory takes the OLDEST frame's refs, before this stage attends
-            pushes.append(RefSet(refs.rois[:push_n], refs.feats[:push_n],
-                                 refs.valid[:push_n]))
+            pushes.append(RefSet(*(a[:, :push_n] for a in refs)))
             refs = cat_refs(refs, lrm[i])
             feats = self._local_attend(i, cur_r, feats, refs, last)
 

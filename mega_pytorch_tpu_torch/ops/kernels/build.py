@@ -3,8 +3,9 @@
 All sources are compiled by ``nvcc`` for ``sm_90a`` into ONE shared library
 with a plain C interface, loaded with ``ctypes``; no PyTorch headers are
 involved, so a build takes seconds. The library's file name carries a hash of
-the sources and flags, so an edited source is rebuilt on first use and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+the flags and of every source and header (``*.cu``, ``*.cuh``), so an edited
+file is rebuilt on first use and an unchanged tree is loaded as it is.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "stem_pool_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "relation_attention_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
+    "position_bias_launch": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -56,9 +58,9 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _digest(sources: list[Path]) -> str:
+def _digest(files: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -72,7 +74,7 @@ def load_library() -> KernelLibrary:
     if _LOADED:
         return _LOADED[0]
     sources = sorted(CSRC.glob("*.cu"))
-    digest = _digest(sources)
+    digest = _digest(sorted([*sources, *CSRC.glob("*.cuh")]))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"libmega_kernels_{digest}.so"
     t0 = time.perf_counter()

@@ -1,9 +1,12 @@
-"""Relation-attention position bias: plain PyTorch helpers.
+"""Relation-attention position bias (counterpart of
+``mega_pytorch_tpu/ops/pallas/position_bias.py``).
 
-Counterpart of ``mega_pytorch_tpu/ops/pallas/position_bias.py``. Its Pallas
-kernel ``fused_position_bias`` (the standalone (g, N, M) log bias) is not on
-the streaming path and is not ported yet; the flash attention kernel computes
-the same position weight in-kernel (``csrc/relation_attention.cu``).
+``fused_position_bias`` replaces the Pallas kernel of the same name: the
+standalone (g, N, M) log bias, launched from ``csrc/position_bias.cu`` on a
+CUDA tensor (design and bound in its source note). The flash attention
+kernel computes the same position weight in-kernel; both kernels take the
+geometry, sinusoids and Wg contraction from ``csrc/position_weight.cuh`` and
+their parameters as the block ``kernel_params`` packs.
 """
 
 from __future__ import annotations
@@ -12,6 +15,10 @@ import math
 
 import numpy as np
 import torch
+
+from .build import check_launch, load_library
+
+GROUPS, EMBED_DIM = 16, 64  # the kernels' g and E (the MEGA configuration)
 
 
 def bias_freq_scales(num_freq: int) -> list[float]:
@@ -78,3 +85,52 @@ def reference_position_bias(
     )
     pw = (pw + wg_bias.float()).clamp_min(0.0)
     return torch.log(pw + 1e-6).movedim(-1, -3)
+
+
+_FREQS: dict[torch.device, torch.Tensor] = {}
+
+
+def kernel_params(wg_kernel: torch.Tensor, wg_bias: torch.Tensor) -> torch.Tensor:
+    """The kernels' f32 parameter block: Wg (E, g) row-major, its bias (g,),
+    then the sinusoid frequencies (kept per device)."""
+    dev = wg_kernel.device
+    if dev not in _FREQS:
+        _FREQS[dev] = torch.tensor(bias_freq_scales(EMBED_DIM // 8),
+                                   dtype=torch.float32, device=dev)
+    return torch.cat([wg_kernel.reshape(-1), wg_bias, _FREQS[dev]])
+
+
+def fused_position_bias(rois, ref_rois, wg_kernel, wg_bias, embed_dim: int = 64):
+    """(N, 4) x (M, 4) → (g, N, M) f32 log position bias, f32 throughout.
+
+    CPU tensors take the plain version (f32 sinusoids); CUDA tensors launch
+    the kernel (``fused_position_bias.launches``), which takes g = 16 and
+    embed_dim = 64."""
+    args = (rois, ref_rois, wg_kernel, wg_bias)
+    if any(t.requires_grad for t in args):
+        raise ValueError("fused_position_bias is inference-only")
+    if rois.device.type == "cpu":
+        return reference_position_bias(*args, embed_dim, sin_dtype=torch.float32)
+    if rois.device.type != "cuda":
+        raise ValueError(f"unsupported device {rois.device}")
+    if embed_dim != EMBED_DIM:
+        raise ValueError(f"the kernel takes embed_dim={EMBED_DIM}, got {embed_dim}")
+    n, m = rois.shape[0], ref_rois.shape[0]
+    for name, t, shape in (("rois", rois, (n, 4)), ("ref_rois", ref_rois, (m, 4)),
+                           ("wg_kernel", wg_kernel, (EMBED_DIM, GROUPS)),
+                           ("wg_bias", wg_bias, (GROUPS,))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != rois.device):
+            raise ValueError(f"{name} must be a contiguous f32 {shape} on {rois.device}")
+    out = torch.empty((GROUPS, n, m), dtype=torch.float32, device=rois.device)
+    params = kernel_params(wg_kernel, wg_bias)
+    status = load_library().lib.position_bias_launch(
+        rois.data_ptr(), ref_rois.data_ptr(), params.data_ptr(), out.data_ptr(),
+        n, m, torch.cuda.current_stream(rois.device).cuda_stream,
+    )
+    check_launch(status, "position_bias")
+    fused_position_bias.launches += 1
+    return out
+
+
+fused_position_bias.launches = 0

@@ -1,15 +1,18 @@
-"""Flash relation attention (forward): modes "none" and "compute".
+"""Flash relation attention (forward): modes "none", "compute" and "input".
 
 Counterpart of ``mega_pytorch_tpu/ops/pallas/relation_attention.py``:
 ``flash_relation_attention`` replaces ``fused_relation_attention`` with no
-bias (``_fused_fwd_batched`` bias_mode "none"), and
+bias (``_fused_fwd_batched`` bias_mode "none");
 ``flash_relation_attention_pos`` replaces ``fused_relation_attention_pos``
-(bias_mode "compute": the position weight evaluated inside the kernel). Both
-launch the CUDA kernel of ``csrc/relation_attention.cu`` (bound, design and
-numerics in its source note). Bias mode "input" is not ported yet.
+(bias_mode "compute": the position weight evaluated inside the kernel); and
+``flash_relation_attention_bias`` replaces ``fused_relation_attention`` with a
+precomputed log bias (bias_mode "input"). All three launch the CUDA kernel
+of ``csrc/relation_attention.cu`` (bound, design and numerics in its source
+note).
 
 Layouts are the JAX package's: q (B, g, N, d), k and v (B, g, M, d), uk
-(B, g, M), valid (B, M), rois (B, N, 4), ref_rois (B, M, 4), Wg (E, g).
+(B, g, M), valid (B, M), rois (B, N, 4), ref_rois (B, M, 4), Wg (E, g),
+bias (B, g, N, M).
 The kernel takes g = 16, d = 64 and E = 64 (the MEGA configuration).
 """
 
@@ -20,10 +23,11 @@ import math
 import torch
 
 from .build import check_launch, load_library
-from .position_bias import bias_freq_scales, reference_position_bias
+from .position_bias import EMBED_DIM, GROUPS, kernel_params, reference_position_bias
 
 NEG_INF = -1e30
-GROUPS, HEAD_DIM, EMBED_DIM = 16, 64, 64
+HEAD_DIM = 64
+MODE_NONE, MODE_COMPUTE, MODE_INPUT = 0, 1, 2
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -57,17 +61,6 @@ def reference_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
     return reference_relation_attention(q, k, v, uk, bias, valid)
 
 
-_FREQS: dict[torch.device, torch.Tensor] = {}
-
-
-def _freqs(device: torch.device) -> torch.Tensor:
-    """The sinusoid frequencies as an f32 tensor on ``device`` (kept per device)."""
-    if device not in _FREQS:
-        _FREQS[device] = torch.tensor(bias_freq_scales(EMBED_DIM // 8),
-                                      dtype=torch.float32, device=device)
-    return _FREQS[device]
-
-
 def _check(q, k, v, uk, valid, extra=()):
     """Raise on operands the kernel does not take."""
     b, g, n, d = q.shape
@@ -91,14 +84,20 @@ def _check(q, k, v, uk, valid, extra=()):
             raise ValueError("all operands must be on one device")
 
 
-def _launch(q, k, v, uk, valid, rois, refs, params, mode):
+def _launch(q, k, v, uk, valid, mode, rois=None, refs=None, params=None,
+            bias=None):
+    """Launch in ``mode``; the operands a mode does not read pass as null."""
     b, _, n, _ = q.shape
     m = k.shape[2]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = load_library().lib
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     status = lib.relation_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), uk.data_ptr(),
-        valid.data_ptr(), rois.data_ptr(), refs.data_ptr(), params.data_ptr(),
+        valid.data_ptr(), ptr(rois), ptr(refs), ptr(params), ptr(bias),
         out.data_ptr(), b, n, m, mode,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -116,7 +115,7 @@ def flash_relation_attention(q, k, v, uk, valid):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, uk, valid)
-    out = _launch(q, k, v, uk, valid, uk, uk, uk, mode=0)
+    out = _launch(q, k, v, uk, valid, MODE_NONE)
     flash_relation_attention.launches += 1
     return out
 
@@ -141,11 +140,33 @@ def flash_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
                            ("wg_bias", wg_bias, (GROUPS,))):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous f32 {shape}")
-    params = torch.cat([wg_kernel.reshape(-1), wg_bias, _freqs(q.device)])
-    out = _launch(q, k, v, uk, valid, rois, ref_rois, params, mode=1)
+    out = _launch(q, k, v, uk, valid, MODE_COMPUTE, rois, ref_rois,
+                  kernel_params(wg_kernel, wg_bias))
     flash_relation_attention_pos.launches += 1
+    return out
+
+
+def flash_relation_attention_bias(q, k, v, uk, bias, valid):
+    """Mode "input": the (B, g, N, M) f32 log bias added to the scaled logits
+    before masking and the running max. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (``flash_relation_attention_bias.launches``)."""
+    if any(t.requires_grad for t in (q, k, v, uk, bias, valid)):
+        raise ValueError("relation attention kernels are inference-only")
+    if q.device.type == "cpu":
+        return reference_relation_attention(q, k, v, uk, bias, valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, uk, valid, (bias,))
+    b, g, n, _ = q.shape
+    shape = (b, g, n, k.shape[2])
+    if tuple(bias.shape) != shape or bias.dtype != torch.float32 or not bias.is_contiguous():
+        raise ValueError(f"bias must be contiguous f32 {shape}, got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    out = _launch(q, k, v, uk, valid, MODE_INPUT, bias=bias)
+    flash_relation_attention_bias.launches += 1
     return out
 
 
 flash_relation_attention.launches = 0
 flash_relation_attention_pos.launches = 0
+flash_relation_attention_bias.launches = 0

@@ -4,12 +4,19 @@ half-pixel shift, ROI extents floored at 1, ``sampling_ratio=0`` meaning an
 adaptive ceil(roi / pooled) grid per ROI (capped at ``max_grid``), taps
 outside [-1, size] contributing zero, coordinates clamped at the edges:
 
-    pooled[r, ph, pw, c] = sum_{h,w} Wy[r, ph, h] * Wx[r, pw, w] * feat[h, w, c]
+    pooled[l, r, ph, pw, c] = sum_{h,w} Wy[l, r, ph, h] Wx[l, r, pw, w] feat[l, h, w, c]
+
+over lanes l, each with its own map and ROIs. The first contraction's
+(lanes, R, ph, W, C) f32 intermediate would reach 1.65 GB at 12 lanes x 300
+ROIs of a 608x1024 canvas, so lanes are contracted in chunks that keep it
+under ``MAX_INTERMEDIATE`` elements.
 """
 
 from __future__ import annotations
 
 import torch
+
+MAX_INTERMEDIATE = 1 << 27  # f32 elements (512 MB) of the first contraction
 
 
 def _axis_weights(start, size, num_bins: int, grid, axis_len: int, max_grid: int):
@@ -45,10 +52,11 @@ def _axis_weights(start, size, num_bins: int, grid, axis_len: int, max_grid: int
 def roi_align(features: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
               pooled_height: int = 7, pooled_width: int = 7,
               sampling_ratio: int = 0, max_grid: int = 10) -> torch.Tensor:
-    """features (H, W, C) of one image, rois (R, 4) xyxy in image coordinates
-    → (R, pooled_height, pooled_width, C) f32."""
-    h, w = features.shape[0], features.shape[1]
-    rois = rois.float()
+    """features (L, H, W, C), one map per lane; rois (L, R, 4) xyxy in image
+    coordinates → (L, R, pooled_height, pooled_width, C) f32."""
+    lanes, h, w, c = features.shape
+    r = rois.shape[1]
+    rois = rois.float().reshape(lanes * r, 4)
     x1 = rois[:, 0] * spatial_scale
     y1 = rois[:, 1] * spatial_scale
     x2 = rois[:, 2] * spatial_scale
@@ -63,8 +71,16 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
     else:
         gh = torch.ceil(roi_h / pooled_height).int().clamp(1, max_grid)
         gw = torch.ceil(roi_w / pooled_width).int().clamp(1, max_grid)
-    wy = _axis_weights(y1, roi_h, pooled_height, gh, h, max_grid)  # (R, PH, H)
-    wx = _axis_weights(x1, roi_w, pooled_width, gw, w, max_grid)  # (R, PW, W)
+    wy = _axis_weights(y1, roi_h, pooled_height, gh, h, max_grid)  # (L*R, PH, H)
+    wx = _axis_weights(x1, roi_w, pooled_width, gw, w, max_grid)  # (L*R, PW, W)
+    wy = wy.reshape(lanes, r, pooled_height, h)
+    wx = wx.reshape(lanes, r, pooled_width, w)
     feat = features.float()
-    tmp = torch.einsum("rph,hwc->rpwc", wy, feat)
-    return torch.einsum("rqw,rpwc->rpqc", wx, tmp)
+    out = torch.empty((lanes, r, pooled_height, pooled_width, c),
+                      dtype=torch.float32, device=features.device)
+    chunk = max(1, MAX_INTERMEDIATE // max(1, r * pooled_height * w * c))
+    for l0 in range(0, lanes, chunk):
+        sl = slice(l0, l0 + chunk)
+        tmp = torch.einsum("lrph,lhwc->lrpwc", wy[sl], feat[sl])
+        out[sl] = torch.einsum("lrqw,lrpwc->lrpqc", wx[sl], tmp)
+    return out

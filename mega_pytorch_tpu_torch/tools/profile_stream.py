@@ -1,9 +1,12 @@
 """Where a streaming step's time goes, on one CUDA card.
 
-    python -m mega_pytorch_tpu_torch.tools.profile_stream --out DIR
+    python -m mega_pytorch_tpu_torch.tools.profile_stream --out DIR [--lanes L]
 
 Builds the flagship (MEGA R-101, bf16, 608x1024, seeded random weights) and
-streams the synthetic video of ``chip_smoke.py`` through ``run_video``:
+streams the synthetic video of ``chip_smoke.py`` through ``run_video`` (one
+lane), or with ``--lanes L`` drives L lockstep lanes of synthetic frames
+through ``make_lockstep_step`` (every lane on the one-video schedule, its
+frames from a pool of random canvases):
 
   1. warm-up steps (cuDNN plans, the kernel build), not counted;
   2. plain steps: host clock per step with a synchronise after it;
@@ -34,7 +37,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..engine.inference import run_video, synthetic_video
+from ..data.transforms import s2d_pack_frames
+from ..engine.batched_inference import make_lockstep_step
+from ..engine.inference import run_video, synthetic_video, video_schedule
 from ..models.detectors import mega as mega_mod
 from ..models.detectors.mega import build_mega_flagship
 
@@ -43,6 +48,30 @@ NUM_FRAMES = 40  # 52 steps with the 12 warm-up steps
 WARMUP, STEPS = 20, 10  # steps not counted; steps in each of the 3 phases
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
+
+
+def _lockstep_steps(model, lanes: int, rs: np.random.RandomState):
+    """Endless lockstep steps of ``lanes`` lanes on the one-video schedule."""
+    dev = next(model.parameters()).device
+    v = model.v
+    pool = torch.from_numpy(s2d_pack_frames(
+        rs.randint(0, 256, (16, *CANVAS, 3), dtype=np.uint8), 4)).to(dev)
+    size = torch.tensor(CANVAS, dtype=torch.float32, device=dev).expand(lanes, 2)
+    step = make_lockstep_step(model)
+    carries = model.zero_carry(lanes, dev)
+    sched = video_schedule(NUM_FRAMES, v.all_frame_interval - v.key_frame_location - 1,
+                           v.global_size)
+    lane = torch.arange(lanes, device=dev)
+    s = 0
+    while True:
+        fidx, gidx, reset, emit = sched[s % len(sched)]
+        flags = torch.tensor([reset, gidx is not None, emit], device=dev)
+        frames = pool[(5 * lane + fidx) % len(pool)]
+        gframes = pool[(3 * lane + (gidx or 0)) % len(pool)]
+        carries, dets = step(carries, frames, size, gframes, size,
+                             *(f.expand(lanes) for f in flags))
+        s += 1
+        yield dets
 
 
 def _steps(gen, n):
@@ -74,7 +103,7 @@ def _layer_timers(model):
     ext = model.extractor
     methods = [
         (model, "precompute_pair", "precompute_pair (whole)"),
-        (model.backbone, "forward", "backbone, 2 frames"),
+        (model.backbone, "forward", "backbone, local + global frame of each lane"),
         (model.rpn, "forward", "RPN head"),
         (ext, "enhance_features", "res5 head + 1x1 reduce"),
         (ext, "pool_flat", "ROIAlign"),
@@ -84,8 +113,8 @@ def _layer_timers(model):
         (model.predictor, "forward", "predictor"),
     ]
     functions = [
-        ("shared_ref_key_postprocess", "RPN postprocess, key set (6000 -> 300)"),
-        ("rpn_postprocess", "RPN postprocess, global frame (6000 -> 75)"),
+        ("shared_ref_key_postprocess", "RPN postprocess, key sets (6000 -> 300)"),
+        ("rpn_postprocess", "RPN postprocess, global frames (6000 -> 75)"),
         ("postprocess_detections", "postprocess_detections (per-class NMS)"),
     ]
     saved = {name: getattr(mega_mod, name) for name, _ in functions}
@@ -148,6 +177,7 @@ def _trace_summary(events, steps, wall_ms):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for the results")
+    ap.add_argument("--lanes", type=int, default=1, help="lockstep lanes (default 1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA card")
@@ -159,8 +189,11 @@ def main(argv=None):
 
     model = build_mega_flagship(*CANVAS, device="cuda",
                                 generator=torch.Generator("cuda").manual_seed(0))
-    frames, gframes = synthetic_video(np.random.RandomState(0), NUM_FRAMES, *CANVAS)
-    gen = run_video(model, frames, gframes)
+    rs = np.random.RandomState(0)
+    if args.lanes == 1:
+        gen = run_video(model, *synthetic_video(rs, NUM_FRAMES, *CANVAS))
+    else:
+        gen = _lockstep_steps(model, args.lanes, rs)
     _steps(gen, WARMUP)
     plain = _steps(gen, STEPS)
     with _layer_timers(model) as calls:
@@ -182,6 +215,7 @@ def main(argv=None):
 
     summary = {
         "card": smi,
+        "lanes": args.lanes,
         "steps": {"warmup": WARMUP, "per_phase": STEPS},
         "plain_ms_per_step_median": statistics.median(plain),
         "plain_ms_per_step": plain,

@@ -69,6 +69,7 @@ def test_fc0_flatten_order_matches():
     port.l_fcs_0.load_state_dict(
         {k.split(".", 1)[1]: v for k, v in sd.items()}, strict=True)
     with torch.inference_mode():
-        got = port.fc0(port.pool_flat(torch.from_numpy(feat), torch.from_numpy(rois)))
+        got = port.fc0(port.pool_flat(torch.from_numpy(feat)[None],
+                                      torch.from_numpy(rois)[None]))[0]
     assert fc["kernel"].shape == (7 * 7 * 256, 1024)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

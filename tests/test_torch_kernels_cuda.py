@@ -10,12 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
 from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
 from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
 
 torch.set_num_threads(2)
 
 ATOL_NONE, ATOL_POS = 6e-3, 2e-2  # bf16 operands; f32-sinusoid plain version
+# the standalone bias in weight space (exp of the log), as tests/test_attention.py
+RTOL_BIAS, ATOL_BIAS = 5e-3, 6e-3
 
 
 @pytest.fixture
@@ -105,3 +108,66 @@ def test_attention_kernel_lanes_and_empty_refs(cuda):
         q, k, v, uk, rois, refs, wk, wb, none).abs().max()) == 0.0
     with pytest.raises(ValueError):  # operands must already be bf16
         ra.flash_relation_attention(q.float(), k, v, uk, valid)
+
+
+def _log_bias(dev, seed, b, n, m):
+    """A (B, 16, N, M) log bias in the range relu(.) + 1e-6 gives."""
+    rs = np.random.RandomState(seed)
+    pw = np.maximum(rs.randn(b, 16, n, m) * 0.5 + 0.3, 0.0) + 1e-6
+    return torch.from_numpy(np.log(pw).astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(37, 300), (16, 64), (675, 750)])
+def test_attention_input_bias_kernel_matches_plain(cuda, n, m):
+    q, k, v, uk, _, _, _, _, valid = _attention(cuda, 7, n=n, m=m)
+    bias = _log_bias(cuda, 8, 2, n, m)
+    before = ra.flash_relation_attention_bias.launches
+    got = ra.flash_relation_attention_bias(q, k, v, uk, bias, valid)
+    assert ra.flash_relation_attention_bias.launches == before + 1
+    want = ra.reference_relation_attention(q, k, v, uk, bias, valid)
+    assert float((got - want).abs().max()) <= ATOL_NONE
+    none = torch.zeros_like(valid)
+    assert float(ra.flash_relation_attention_bias(q, k, v, uk, bias, none)
+                 .abs().max()) == 0.0
+    with pytest.raises(ValueError):  # the bias must be (B, g, N, M)
+        ra.flash_relation_attention_bias(q, k, v, uk, bias[:, :, :, :-1], valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(37, 300), (675, 3750), (1, 5)])
+def test_position_bias_kernel_matches_plain(cuda, n, m):
+    *_, rois, refs, wk, wb, _ = _attention(cuda, 9, b=1, n=n, m=m)
+    rois, refs = rois[0].contiguous(), refs[0].contiguous()
+    before = pb.fused_position_bias.launches
+    got = pb.fused_position_bias(rois, refs, wk, wb)
+    assert pb.fused_position_bias.launches == before + 1
+    want = pb.reference_position_bias(rois, refs, wk, wb, 64, sin_dtype=torch.float32)
+    assert got.shape == (16, n, m) and got.dtype == torch.float32
+    torch.testing.assert_close(got.exp(), want.exp(), rtol=RTOL_BIAS, atol=ATOL_BIAS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "compute", "input"])
+def test_attention_kernel_lanes_are_independent(cuda, mode):
+    """Every lane of a B=12 call equals the B=1 call on that lane's data."""
+    lanes, n, m = 12, 40, 200
+    q, k, v, uk, rois, refs, wk, wb, valid = _attention(cuda, 10, b=lanes, n=n, m=m)
+    valid[3] = False  # one lane with no valid ref
+    bias = _log_bias(cuda, 11, lanes, n, m)
+
+    def call(sl):
+        def t(x):
+            return x[sl].contiguous()
+        if mode == "none":
+            return ra.flash_relation_attention(t(q), t(k), t(v), t(uk), t(valid))
+        if mode == "compute":
+            return ra.flash_relation_attention_pos(t(q), t(k), t(v), t(uk), t(rois),
+                                                   t(refs), wk, wb, t(valid))
+        return ra.flash_relation_attention_bias(t(q), t(k), t(v), t(uk), t(bias),
+                                                t(valid))
+
+    batched = call(slice(None))
+    for lane in range(lanes):
+        assert torch.equal(batched[lane:lane + 1], call(slice(lane, lane + 1))), lane
+    assert float(batched[3].abs().max()) == 0.0

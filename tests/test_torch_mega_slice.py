@@ -137,19 +137,21 @@ def test_slice_detections_match(streams):
 
 
 def _to_port_carry(carry):
+    """A JAX one-lane carry as the port's carry of one lane."""
     def t(x):
-        return torch.from_numpy(np.array(x))
+        return torch.from_numpy(np.array(x))[None]
     return port_mega.MEGACarry(*[
         tuple(t(a) for a in f) if isinstance(f, tuple) else t(f) for f in carry
     ])
 
 
 def _assert_carry_close(got, want):
+    """got: the port's carry of one lane; want: the JAX one-lane carry."""
     for name, w in want._asdict().items():
         g = getattr(got, name)
         for wi, gi in zip(w if isinstance(w, tuple) else (w,),
                           g if isinstance(g, tuple) else (g,)):
-            np.testing.assert_allclose(gi.numpy().astype(np.float32),
+            np.testing.assert_allclose(gi[0].numpy().astype(np.float32),
                                        np.asarray(wi).astype(np.float32),
                                        rtol=0, atol=ATOL_CARRY, err_msg=name)
 
@@ -176,7 +178,7 @@ def test_test_step_precompute_and_update_global_match(streams):
 
     want_c, want_d = apply(M.test_step, jc, ImageBatch(tensors=both, sizes=sz))
     with torch.inference_mode():
-        got_c, got_d = port.test_step(pc, tb, ts)
+        got_c, got_d = port.test_step(pc, tb[None], ts[None])
         got_g = port.update_global(pc, tb[1:], ts[1:])
         got_e = port.precompute(tb[:1], ts[:1])
     _assert_carry_close(got_c, want_c)
@@ -189,6 +191,6 @@ def test_test_step_precompute_and_update_global_match(streams):
     _assert_carry_close(got_g, want_g)
     want_e = apply(M.precompute, ImageBatch(tensors=both[:1], sizes=sz[:1]))
     for key, w in want_e.items():
-        np.testing.assert_allclose(got_e[key].numpy().astype(np.float32),
+        np.testing.assert_allclose(got_e[key][0].numpy().astype(np.float32),
                                    np.asarray(w).astype(np.float32), rtol=0,
                                    atol=ATOL_CARRY, err_msg=key)

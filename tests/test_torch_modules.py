@@ -254,7 +254,7 @@ def test_roi_align_matches():
         [-30, -20, 10, 5], [50, 50, 50.2, 50.1], [0, 0, 287, 191],
     ], np.float32)
     want = np.asarray(jax_roi_align(jnp.asarray(feat), jnp.asarray(rois), 1 / 16))
-    got = roi_align(_t(feat), _t(rois), 1 / 16).numpy()
+    got = roi_align(_t(feat)[None], _t(rois)[None], 1 / 16)[0].numpy()
     assert got.shape == (6, 7, 7, 32)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
@@ -281,8 +281,9 @@ def test_relation_attention_matches(use_position):
     want = np.asarray(jmod.apply({"params": params}, *args, pos_rois=pos))
     port = _load(RelationAttention(use_position=use_position), params)
     with torch.inference_mode():
-        got = port(_t(x), _t(refs), _t(valid),
-                   pos_rois=(_t(rois), _t(ref_rois)) if use_position else None).numpy()
+        got = port(_t(x)[None], _t(refs)[None], _t(valid)[None],
+                   pos_rois=(_t(rois)[None], _t(ref_rois)[None]) if use_position
+                   else None)[0].numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
@@ -309,3 +310,32 @@ def test_postprocess_detections_matches():
                                atol=1e-5)
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=0,
                                atol=1e-5)
+
+
+def test_postprocess_detections_batched_equals_per_image(monkeypatch):
+    """One batched per-class NMS over all images keeps exactly what a call
+    per image keeps (the images' rows never interact), and a batch pays its
+    NMS (whose rounds each synchronise with the host) once, not per image."""
+    rs = np.random.RandomState(10)
+    b, k, c = 3, 60, 31
+    logits = (rs.randn(b, k, c) * 3).astype(np.float32)
+    deltas = (rs.randn(b, k, 4 * c) * 0.5).astype(np.float32)
+    xy = rs.rand(b, k, 2) * 40
+    props = np.concatenate([xy, xy + 4 + rs.rand(b, k, 2) * 30], -1).astype(np.float32)
+    props[1, 10:20] = props[1, 0]  # duplicate boxes: suppression clusters
+    prop_valid = rs.rand(b, k) > 0.1
+    sizes = np.array([[60.0, 63.0], [56.0, 62.0], [48.0, 64.0]], np.float32)
+    args = [_t(a) for a in (logits, deltas, props, prop_valid, sizes)]
+    kw = dict(score_thresh=0.02, nms_thresh=0.5, detections_per_img=50)
+    from mega_pytorch_tpu_torch.models.roi_heads import inference as port_inference
+
+    calls = []
+    monkeypatch.setattr(port_inference, "nms",
+                        lambda *a, **k: calls.append(1) or nms(*a, **k))
+    batched = postprocess_detections(*args, **kw)
+    assert len(calls) == 1
+    assert int(batched.valid.sum()) > 20
+    for i in range(b):
+        one = postprocess_detections(*(a[i:i + 1] for a in args), **kw)
+        for name, got, want in zip(one._fields, batched, one):
+            assert torch.equal(got[i:i + 1], want), (i, name)
