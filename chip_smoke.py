@@ -13,9 +13,11 @@ Phases, each printing its own lines:
      f32-sinusoid plain version), a 2-lane call whose lane 0 equals the
      1-lane call, all-invalid refs giving zeros; mode "input" at the stage-0
      shape (atol 6e-3) and ``fused_position_bias`` against its f32 plain
-     version in weight space (rtol 5e-3, atol 6e-3); a 12-lane call of each
-     attention mode whose every lane equals the 1-lane call exactly; each
-     with the kernel's and the plain version's time (TF32 off);
+     version in weight space (rtol 5e-3, atol 6e-3); at the 12-lane step's
+     shapes (B=12) the stem pool, "none" at both of its shapes, "compute" and
+     "input" at stage 0; a 12-lane call of each attention mode whose every
+     lane equals the 1-lane call exactly; each with the kernel's and the
+     plain version's time (TF32 off);
   4. stream: MEGA R-101 in bf16 at 608x1024 with seeded random weights runs a
      40-frame synthetic video through ``run_video`` (one lane); detections
      must be finite with 300 slots, and every kernel launch count must be
@@ -137,6 +139,33 @@ def _attention_inputs(gen, b, n, m, dev):
     )
 
 
+def _attention_fns(ra, mode, x, bias=None):
+    """(kernel call, plain call, atol) of one attention mode on inputs x."""
+    if mode == "compute":
+        args = (x["q"], x["k"], x["v"], x["uk"], x["rois"], x["refs"], x["wk"],
+                x["wb"], x["valid"])
+        return (lambda: ra.flash_relation_attention_pos(*args),
+                lambda: ra.reference_relation_attention_pos(*args), ATOL_POS)
+    base = (x["q"], x["k"], x["v"], x["uk"])
+    if mode == "none":
+        return (lambda: ra.flash_relation_attention(*base, x["valid"]),
+                lambda: ra.reference_relation_attention(*base, None, x["valid"]),
+                ATOL_NONE)
+    return (lambda: ra.flash_relation_attention_bias(*base, bias, x["valid"]),
+            lambda: ra.reference_relation_attention(*base, bias, x["valid"]),
+            ATOL_NONE)
+
+
+def _stage_bias(pb, x):
+    """The (B, 16, N, M) f32 log position bias of x's boxes, lane by lane."""
+    import torch
+
+    return torch.cat([
+        pb.reference_position_bias(x["rois"][i:i + 1], x["refs"][i:i + 1], x["wk"],
+                                   x["wb"], 64, sin_dtype=torch.float32)
+        for i in range(x["q"].shape[0])]).contiguous()
+
+
 def phase_kernels():
     import torch
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
@@ -171,18 +200,7 @@ def phase_kernels():
 
     def check_attention(label, n, m, pos):
         x = _attention_inputs(gen, 1, n, m, dev)
-        if pos:
-            args = (x["q"], x["k"], x["v"], x["uk"], x["rois"], x["refs"], x["wk"],
-                    x["wb"], x["valid"])
-            kern = lambda: ra.flash_relation_attention_pos(*args)  # noqa: E731
-            plain = lambda: ra.reference_relation_attention_pos(*args)  # noqa: E731
-            tol = ATOL_POS
-        else:
-            args = (x["q"], x["k"], x["v"], x["uk"], x["valid"])
-            kern = lambda: ra.flash_relation_attention(*args)  # noqa: E731
-            plain = lambda: ra.reference_relation_attention(  # noqa: E731
-                *args[:4], None, args[4])
-            tol = ATOL_NONE
+        kern, plain, tol = _attention_fns(ra, "compute" if pos else "none", x)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
@@ -245,8 +263,7 @@ def phase_kernels():
 
     # mode "input" at the stage-0 shape, with the log bias the path would add
     x = _attention_inputs(gen, 1, 675, 3750, dev)
-    bias = pb.reference_position_bias(x["rois"], x["refs"], x["wk"], x["wb"], 64,
-                                      sin_dtype=torch.float32).contiguous()
+    bias = _stage_bias(pb, x)
     args = (x["q"], x["k"], x["v"], x["uk"], bias, x["valid"])
     got = ra.flash_relation_attention_bias(*args)
     want = ra.reference_relation_attention(*args)
@@ -299,34 +316,29 @@ def phase_kernels():
     if not exact:
         _fail("stem_pool is not bit-exact at the 12-lane shape")
     del y
-    for label, n, m, pos in (("none (global enhance)", 2175, 750, False),
-                             ("compute (stage 0)", 675, 3750, True)):
+    for mode, label, n, m in (("none", "global enhance", 2175, 750),
+                              ("none", "global residual", 300, 750),
+                              ("compute", "stage 0", 675, 3750),
+                              ("input", "stage 0", 675, 3750)):
         x = _attention_inputs(gen, LANES, n, m, dev)
-        if pos:
-            args = (x["q"], x["k"], x["v"], x["uk"], x["rois"], x["refs"], x["wk"],
-                    x["wb"], x["valid"])
-            kern = lambda: ra.flash_relation_attention_pos(*args)  # noqa: E731
-            plain = lambda: ra.reference_relation_attention_pos(*args)  # noqa: E731
-        else:
-            args = (x["q"], x["k"], x["v"], x["uk"], x["valid"])
-            kern = lambda: ra.flash_relation_attention(*args)  # noqa: E731
-            plain = lambda: ra.reference_relation_attention(  # noqa: E731
-                *args[:4], None, args[4])
-        err = (kern() - plain()).abs().max().item()
+        bias = _stage_bias(pb, x) if mode == "input" else None
+        kern, plain, tol = _attention_fns(ra, mode, x, bias)
+        got = kern()
+        err = (got - plain()).abs().max().item()
+        if not torch.isfinite(got).all():
+            _fail(f"relation_attention {mode} ({label}) at B={LANES}: non-finite")
         ms, plain_ms = _time_pair(plain, kern, repeats=5)
-        tol = ATOL_POS if pos else ATOL_NONE
-        print(f"[kernels] {LANES} lanes: relation_attention {label} B={LANES} N={n} "
-              f"M={m}: max_abs_err {err:.3e} (atol {tol}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
+        print(f"[kernels] {LANES} lanes: relation_attention {mode} ({label}) B={LANES} "
+              f"N={n} M={m}: max_abs_err {err:.3e} (atol {tol}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
         if not err <= tol:
-            _fail(f"relation_attention {label} at B={LANES}: max_abs_err {err}")
-        del x, args
+            _fail(f"relation_attention {mode} ({label}) at B={LANES}: max_abs_err {err}")
+        del x, bias, got, kern, plain
 
     # 12 lanes: every lane of a B=12 call equals the B=1 call on its data
     x = _attention_inputs(gen, LANES, 300, 750, dev)
     x["valid"][3] = False  # one lane with no valid ref
-    bias = pb.reference_position_bias(x["rois"], x["refs"], x["wk"], x["wb"], 64,
-                                      sin_dtype=torch.float32).contiguous()
+    bias = _stage_bias(pb, x)
 
     def call(mode, sl):
         def t(name):

@@ -6,9 +6,11 @@ bias (``_fused_fwd_batched`` bias_mode "none");
 ``flash_relation_attention_pos`` replaces ``fused_relation_attention_pos``
 (bias_mode "compute": the position weight evaluated inside the kernel); and
 ``flash_relation_attention_bias`` replaces ``fused_relation_attention`` with a
-precomputed log bias (bias_mode "input"). All three launch the CUDA kernel
-of ``csrc/relation_attention.cu`` (bound, design and numerics in its source
-note).
+precomputed log bias (bias_mode "input"). All three launch
+``csrc/relation_attention.cu``: modes "none" and "input" its tensor-core
+kernel, one block per (lane, group, 64 query rows); mode "compute" its
+CUDA-core kernel, which shares each tile's position weight across the groups
+(bound, design and numerics in its source note).
 
 Layouts are the JAX package's: q (B, g, N, d), k and v (B, g, M, d), uk
 (B, g, M), valid (B, M), rois (B, N, 4), ref_rois (B, M, 4), Wg (E, g),
@@ -27,6 +29,7 @@ from .position_bias import EMBED_DIM, GROUPS, kernel_params, reference_position_
 
 NEG_INF = -1e30
 HEAD_DIM = 64
+REF_TILE = 64  # refs per tile of the kernels' online softmax
 MODE_NONE, MODE_COMPUTE, MODE_INPUT = 0, 1, 2
 
 
@@ -50,6 +53,37 @@ def reference_relation_attention(q, k, v, uk, bias, valid):
     soft = torch.softmax(aff, dim=-1)
     soft = torch.where(valid.any(-1)[:, None, None, None], soft, torch.zeros_like(soft))
     return _bf16(soft) @ _bf16(v)
+
+
+def reference_relation_attention_tiled(q, k, v, uk, bias, valid):
+    """The plain version in the kernels' order of rounding: refs in tiles of
+    ``REF_TILE`` under the online softmax, p = exp(s - running max) rounded to
+    bf16 before PV and normalised by the f32 sum at the end, as the Pallas
+    kernel does. ``reference_relation_attention`` rounds the normalised
+    softmax instead; where a few refs carry a row's weight the two differ by
+    up to 2^-7 max|v| (two roundings to bf16, unit roundoff 2^-8 each)."""
+    d = q.shape[-1]
+    s = _bf16(q) @ _bf16(k).transpose(-1, -2)
+    s = (s + uk.float()[..., None, :]) * (1.0 / math.sqrt(d))
+    if bias is not None:
+        s = s + bias
+    keep = valid[:, None, None, :]
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    run_max = torch.full(q.shape[:-1], NEG_INF, device=q.device)
+    run_sum = torch.zeros(q.shape[:-1], device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    for m0 in range(0, s.shape[-1], REF_TILE):
+        st = s[..., m0:m0 + REF_TILE]
+        new_max = torch.maximum(run_max, st.amax(-1))
+        alpha = torch.exp(run_max - new_max)
+        p = torch.where(keep[..., m0:m0 + REF_TILE], torch.exp(st - new_max[..., None]),
+                        torch.zeros_like(st))
+        run_sum = run_sum * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _bf16(p) @ _bf16(v[..., m0:m0 + REF_TILE, :])
+        run_max = new_max
+    pos = run_sum > 0
+    return torch.where(pos[..., None], acc / torch.where(pos, run_sum, 1.0)[..., None],
+                       torch.zeros_like(acc))
 
 
 def reference_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
@@ -82,6 +116,21 @@ def _check(q, k, v, uk, valid, extra=()):
     for t in (k, v, uk, valid, *extra):
         if t.device != q.device:
             raise ValueError("all operands must be on one device")
+    # the kernels copy q, k and v rows in 16-byte pieces
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _check_bias(q, k, bias):
+    """Raise on a mode "input" bias the kernel does not take."""
+    b, g, n, _ = q.shape
+    shape = (b, g, n, k.shape[2])
+    if tuple(bias.shape) != shape or bias.dtype != torch.float32 or not bias.is_contiguous():
+        raise ValueError(f"bias must be contiguous f32 {shape}, got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    if bias.data_ptr() % 8:  # copied in 8-byte pairs
+        raise ValueError("bias must start on an 8-byte boundary")
 
 
 def _launch(q, k, v, uk, valid, mode, rois=None, refs=None, params=None,
@@ -157,11 +206,7 @@ def flash_relation_attention_bias(q, k, v, uk, bias, valid):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, uk, valid, (bias,))
-    b, g, n, _ = q.shape
-    shape = (b, g, n, k.shape[2])
-    if tuple(bias.shape) != shape or bias.dtype != torch.float32 or not bias.is_contiguous():
-        raise ValueError(f"bias must be contiguous f32 {shape}, got {bias.dtype} "
-                         f"{tuple(bias.shape)}")
+    _check_bias(q, k, bias)
     out = _launch(q, k, v, uk, valid, MODE_INPUT, bias=bias)
     flash_relation_attention_bias.launches += 1
     return out

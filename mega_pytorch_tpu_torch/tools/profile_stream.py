@@ -16,7 +16,7 @@ frames from a pool of random canvases):
      trace is exported. From the trace: the device's busy time as the union
      of kernel, memcpy and memset intervals, the idle share as 1 - busy /
      wall, launches and host synchronisations per step, and device time by
-     kernel name.
+     kernel name (the 15 largest, and every relation attention kernel).
 
 Prints a summary and writes it, with the gzipped trace, under ``--out``.
 """
@@ -152,9 +152,9 @@ def _trace_summary(events, steps, wall_ms):
     device = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     kernels = [e for e in device if e["cat"] == "kernel"]
     busy_ms = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in device]) / 1e3
-    by_name = defaultdict(float)
-    for e in kernels:
-        by_name[e["name"]] += e["dur"] / 1e3
+    by_name = defaultdict(float)  # names cut to 90 characters, so that
+    for e in kernels:             # instances of one template add up
+        by_name[e["name"][:90]] += e["dur"] / 1e3
     runtime = defaultdict(lambda: [0, 0.0])
     for e in events:
         if e.get("ph") == "X" and e.get("cat") == "cuda_runtime":
@@ -170,7 +170,9 @@ def _trace_summary(events, steps, wall_ms):
         "kernel_launches_per_step": len(kernels) / steps,
         "launch_api_ms_per_step": runtime["cudaLaunchKernel"][1] / steps,
         "sync_calls_per_step": {n: runtime[n][0] / steps for n in SYNC_CALLS},
-        "device_ms_per_step_by_kernel": {n[:90]: ms / steps for n, ms in top},
+        "device_ms_per_step_by_kernel": {n: ms / steps for n, ms in top},
+        "attention_ms_per_step_by_kernel": {
+            n: ms / steps for n, ms in by_name.items() if "relation_attention" in n},
     }
 
 

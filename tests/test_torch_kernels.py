@@ -26,6 +26,7 @@ torch.set_num_threads(2)
 
 B, G, N, M, D, E = 2, 16, 37, 300, 64, 64
 ATOL_NONE, ATOL_POS, ATOL_TWIN = 6e-3, 2e-2, 1e-3
+ATOL_TILED = 1e-3  # same rounding of p; f32 sums in another order
 
 
 def _attention_data(seed=0, b=B, n=N, m=M):
@@ -130,6 +131,53 @@ def test_plain_twins_match_jax_references(sin_dtype):
                                        j["valid"])
         np.testing.assert_allclose(got[lane].numpy(), np.asarray(want), rtol=0,
                                    atol=ATOL_TWIN, err_msg=f"lane {lane}")
+
+
+@pytest.mark.parametrize("n,m,qk_scale", [(37, 5, 1.0), (65, 130, 1.0), (20, 300, 4.0)])
+@pytest.mark.parametrize("mode", ["none", "input"])
+def test_tiled_plain_version_matches_pallas_rounding(mode, n, m, qk_scale):
+    """The tiled plain version against the Pallas kernel run with 64-ref
+    tiles: the same rounding of p. The flat plain version rounds the
+    normalised softmax, and stays within 2^-7 max|v| of the kernel (two
+    roundings to bf16, unit roundoff 2^-8 each)."""
+    x = _attention_data(20, n=n, m=m)
+    x["q"] *= qk_scale
+    x["k"] *= qk_scale
+    x["uk"] *= 80  # at the scale of q.k
+    rs = np.random.RandomState(21)
+    bias = (np.log(np.maximum(rs.randn(B, G, n, m) * 0.5 + 0.3, 0.0) + 1e-6)
+            .astype(np.float32) if mode == "input" else None)
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    want = np.asarray(_fused_fwd_batched(
+        j["q"], j["k"], j["v"], j["uk"], None if bias is None else jnp.asarray(bias),
+        j["valid"], embed_dim=E, tile_m=64, interpret=True))
+    args = (_t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["uk"]),
+            None if bias is None else _t(bias), _t(x["valid"]))
+    tiled = ra.reference_relation_attention_tiled(*args).numpy()
+    np.testing.assert_allclose(tiled, want, rtol=0, atol=ATOL_TILED)
+    flat = ra.reference_relation_attention(*args).numpy()
+    bound = 2.0 ** -7 * float(ra._bf16(_t(x["v"])).abs().max())
+    assert np.abs(flat - want).max() <= bound
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "bias"])
+def test_kernel_checks_reject_misaligned_operands(name):
+    """The checks the CUDA wrappers run before a launch: q, k and v start on
+    16 bytes, the bias on 8; a contiguous view one element in is refused."""
+    b, n, m = 2, 5, 7
+    ops = dict(q=torch.zeros(b, G, n, D, dtype=torch.bfloat16),
+               k=torch.zeros(b, G, m, D, dtype=torch.bfloat16),
+               v=torch.zeros(b, G, m, D, dtype=torch.bfloat16),
+               bias=torch.zeros(b, G, n, m))
+    uk, valid = torch.zeros(b, G, m), torch.ones(b, m, dtype=torch.bool)
+    ra._check(ops["q"], ops["k"], ops["v"], uk, valid, (ops["bias"],))
+    ra._check_bias(ops["q"], ops["k"], ops["bias"])
+    t = ops[name]
+    ops[name] = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    assert ops[name].is_contiguous() and ops[name].storage_offset() == 1
+    with pytest.raises(ValueError, match="byte boundary"):
+        ra._check(ops["q"], ops["k"], ops["v"], uk, valid, (ops["bias"],))
+        ra._check_bias(ops["q"], ops["k"], ops["bias"])
 
 
 def test_all_invalid_refs_give_exact_zeros():

@@ -134,6 +134,100 @@ def test_attention_input_bias_kernel_matches_plain(cuda, n, m):
         ra.flash_relation_attention_bias(q, k, v, uk, bias[:, :, :, :-1], valid)
 
 
+def _tensor_core_mode(mode, q, k, v, uk, bias, valid):
+    """Mode "none" or "input" of the kernel, counted as one launch."""
+    if mode == "none":
+        wrapper, args = ra.flash_relation_attention, (q, k, v, uk, valid)
+    else:
+        wrapper, args = ra.flash_relation_attention_bias, (q, k, v, uk, bias, valid)
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before + 1
+    return got
+
+
+def _rounding_bound(v):
+    """How far two roundings of p to bf16 (unit roundoff 2^-8 each) can move
+    a row of p.v / l: 2^-7 max|v|. The flat plain version rounds p / l where
+    the kernel rounds p (the Pallas kernel and the flat version differ by up
+    to 8.8e-3 where a few refs carry a row, on the CPU)."""
+    return 2.0 ** -7 * float(v.float().abs().max())
+
+
+def _assert_matches_plain(got, q, k, v, uk, bias, valid, atol_tiled=ATOL_NONE):
+    """Within atol_tiled of the tiled plain version, which rounds p where the
+    kernel (and the Pallas kernel) does, and within the rounding bound of
+    the flat one."""
+    tiled = ra.reference_relation_attention_tiled(q, k, v, uk, bias, valid)
+    assert float((got - tiled).abs().max()) <= atol_tiled
+    flat = ra.reference_relation_attention(q, k, v, uk, bias, valid)
+    assert float((got - flat).abs().max()) <= max(ATOL_NONE, _rounding_bound(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 63, 750, 3750])
+@pytest.mark.parametrize("n", [1, 63, 65, 2175])
+@pytest.mark.parametrize("mode", ["none", "input"])
+def test_attention_tensor_core_modes_ragged(cuda, mode, n, m):
+    """Row tiles of 64 and ref tiles of 64 cut ragged on both axes; odd M
+    puts every other bias row off an 8-byte boundary."""
+    q, k, v, uk, *_, valid = _attention(cuda, 12, n=n, m=m)
+    valid[:, 0] = True  # a valid ref in every lane, even at M=1
+    bias = _log_bias(cuda, 13, 2, n, m) if mode == "input" else None
+    got = _tensor_core_mode(mode, q, k, v, uk, bias, valid)
+    assert got.shape == (2, 16, n, 64) and torch.isfinite(got).all()
+    _assert_matches_plain(got, q, k, v, uk, bias, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "input"])
+def test_attention_recovers_from_invalid_leading_tiles(cuda, mode):
+    """The first two 64-ref tiles all invalid: the running max starts at
+    -1e30 and must give way to the first valid tile's."""
+    n, m = 100, 300
+    q, k, v, uk, *_, valid = _attention(cuda, 14, n=n, m=m)
+    valid[:, :128] = False
+    valid[1, :290] = False  # lane 1: only the ragged last tile has valid refs
+    bias = _log_bias(cuda, 15, 2, n, m) if mode == "input" else None
+    got = _tensor_core_mode(mode, q, k, v, uk, bias, valid)
+    _assert_matches_plain(got, q, k, v, uk, bias, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "input"])
+def test_attention_large_logits_rescale(cuda, mode):
+    """q and k scaled by 4: logits spread over tens of units, so the running
+    max moves between tiles and a missing alpha rescale shows. A few refs
+    carry each row, and q.k summed in another order can round a dominant p
+    to the other neighbouring bf16 value than the tiled plain version does
+    (6.5e-3 seen on the card), so both comparisons take the rounding bound."""
+    n, m = 100, 750
+    q, k, v, uk, *_, valid = _attention(cuda, 16, n=n, m=m)
+    q = (q.float() * 4).to(torch.bfloat16)
+    k = (k.float() * 4).to(torch.bfloat16)
+    bias = _log_bias(cuda, 17, 2, n, m) if mode == "input" else None
+    got = _tensor_core_mode(mode, q, k, v, uk, bias, valid)
+    _assert_matches_plain(got, q, k, v, uk, bias, valid,
+                          atol_tiled=max(ATOL_NONE, _rounding_bound(v)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "input"])
+def test_attention_kernels_reject_misaligned_operands(cuda, mode):
+    q, k, v, uk, *_, valid = _attention(cuda, 18)
+    bias = _log_bias(cuda, 19, 2, q.shape[2], k.shape[2])
+    qm = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    qm.copy_(q)
+    assert qm.storage_offset() == 1 and qm.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        _tensor_core_mode(mode, qm, k, v, uk, bias, valid)
+    if mode == "input":
+        bm = torch.empty(bias.numel() + 1, device=cuda)[1:].view(bias.shape)
+        bm.copy_(bias)
+        with pytest.raises(ValueError, match="8-byte"):
+            _tensor_core_mode(mode, q, k, v, uk, bm, valid)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m", [(37, 300), (675, 3750), (1, 5)])
 def test_position_bias_kernel_matches_plain(cuda, n, m):
