@@ -10,14 +10,18 @@ Phases, each printing its own lines:
   3. kernels against their plain PyTorch versions at every shape the
      flagship path gives them: stem pool (exact, bf16 and f32), relation
      attention mode "none" (atol 6e-3) and "compute" (atol 2e-2 against the
-     f32-sinusoid plain version), a 2-lane call whose lane 0 equals the
-     1-lane call, all-invalid refs giving zeros; mode "input" at the stage-0
-     shape (atol 6e-3) and ``fused_position_bias`` against its f32 plain
-     version in weight space (rtol 5e-3, atol 6e-3); at the 12-lane step's
-     shapes (B=12) the stem pool, "none" at both of its shapes, "compute" and
-     "input" at stage 0; a 12-lane call of each attention mode whose every
-     lane equals the 1-lane call exactly; each with the kernel's and the
-     plain version's time (TF32 off);
+     f32-sinusoid plain version; against the tiled plain version in the
+     kernel's arithmetic, 2^-7 max|v| and a mean error of 5e-5), a 2-lane
+     call whose lane 0 equals the 1-lane
+     call, all-invalid refs giving zeros; mode "input" at the stage-0 shape
+     (atol 6e-3) and ``fused_position_bias`` against its f32 plain version
+     in weight space (rtol 5e-3, atol 6e-3); at the 12-lane step's shapes
+     (B=12) the stem pool, "none" at both of its shapes, "compute" at stages
+     0-2 (both tolerances) and "input" at stage 0; a 12-lane call of each
+     attention mode whose every lane equals the 1-lane call exactly; each
+     with the kernel's and the plain version's time (TF32 off), the bound
+     from the card's peak rates and, for "none" and "input", the time of
+     ``scaled_dot_product_attention`` on the same inputs;
   4. stream: MEGA R-101 in bf16 at 608x1024 with seeded random weights runs a
      40-frame synthetic video through ``run_video`` (one lane); detections
      must be finite with 300 slots, and every kernel launch count must be
@@ -28,7 +32,8 @@ Phases, each printing its own lines:
      12-40 frames from an in-memory dataset through
      ``compute_on_dataset_lockstep``; every frame must be emitted exactly
      once, detections finite with 300 slots, each step must launch 1 stem
-     pool, 2 "none" and 3 "compute" kernels whatever the lane count, and the
+     pool, 2 "none" and 3 "compute" kernels whatever the lane count (and no
+     "input" or standalone position-bias kernel), and the
      first 15 steps re-run from fresh carries must be bit-identical; prints
      ms/step, frames/s and peak memory;
   7. position-bias paths: ``RelationAttention(pos_emb=...)`` (mode "input")
@@ -56,9 +61,27 @@ CANVAS = (608, 1024)
 NUM_FRAMES = 40
 LANES, NUM_VIDEOS = 12, 24
 ATOL_NONE, ATOL_POS = 6e-3, 2e-2
+# mode "compute" against its tiled plain version, which rounds p * pw to
+# bf16 where the kernel does: pw differs in its last f32 bits (hardware sine
+# and log, sums in another order), which can round a p * pw at a bf16
+# boundary to its other neighbour, so the largest error may reach one step
+# (2^-7 relative) of a ref that carries a row, 2^-7 max|v|; such steps are
+# rare, so the mean error must stay below MEAN_POS_TILED (the kernel's
+# mean error against the flat version is ~2e-4 to 4e-4)
+MEAN_POS_TILED = 5e-5
 RTOL_BIAS, ATOL_BIAS = 5e-3, 6e-3  # fused_position_bias in weight space
 TIMING_REPEATS = 25  # timed turns per version
 TIMING_INNER = 10  # back-to-back calls per timed turn
+# the card's peak rates for bound_ms (NVIDIA H100 SXM data sheet, 700 W);
+# special functions (hardware sine, cosine, exp2, log2) issue at 16 a clock
+# per SM (CUDA programming guide, compute capability 9.0): 132 SMs at the
+# 1.98 GHz boost clock
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+SFU_OPS = 132 * 16 * 1.98e9
+# kernel launches per detect step on the model path (both lane counts)
+PER_STEP = {"stem_pool_packed": 1, "flash_relation_attention": 2,
+            "flash_relation_attention_pos": 3, "flash_relation_attention_bias": 0,
+            "fused_position_bias": 0}
 
 
 def _fail(msg: str):
@@ -66,28 +89,67 @@ def _fail(msg: str):
 
 
 def _time_pair(plain_fn, kernel_fn, repeats=TIMING_REPEATS):
-    """Median ms per call of each, from CUDA events around TIMING_INNER
-    back-to-back calls, after a warm-up, the two versions in turns."""
+    """(kernel, plain) median ms per call, the two versions in turns
+    (``tools/kernel_bench.time_alternating``)."""
+    from mega_pytorch_tpu_torch.tools.kernel_bench import time_alternating
+
+    plain, kernel = time_alternating([plain_fn, kernel_fn], repeats, TIMING_INNER)
+    return kernel, plain
+
+
+def _bound(nbytes, bf16_flops=0.0, f32_ops=0.0, sfu_ops=0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over their peak rate, each kind on its own units:
+    tensor-core bf16 FLOPs, f32 operations on the CUDA cores, and special
+    functions on the special function units."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(bf16_flops / BF16_FLOPS, f32_ops / F32_FLOPS, sfu_ops / SFU_OPS) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _attention_bound(mode, x, bias=None):
+    """The least time of one attention call on x: each operand read once and
+    the f32 output written once; QK and PV (and in mode "compute" the two
+    32-deep Wg contractions) on the tensor cores; per (pair, group) the
+    scale, mask, max and sum in f32 (+ the bias add, or pw's add, relu,
+    + 1e-6 and product with p) and the exp on the special function units,
+    which in mode "compute" also take per pair the 2 logs and 32 sinusoids
+    of dx/dy."""
+    b, g, n, d = x["q"].shape
+    pairs = b * n * x["k"].shape[2]
+    tensors = [x["q"], x["k"], x["v"], x["uk"], x["valid"]]
+    flops, f32, sfu = pairs * g * 4 * d, pairs * g * 4, pairs * g
+    if mode == "compute":
+        tensors += [x["rois"], x["refs"], x["wk"], x["wb"]]
+        flops += pairs * g * 2 * 2 * 32
+        f32 += pairs * g * 4
+        sfu += pairs * 34
+    elif mode == "input":
+        tensors.append(bias)
+        f32 += pairs * g
+    return _bound(_nbytes(*tensors) + b * g * n * d * 4, flops, f32, sfu)
+
+
+def _library_fn(x, bias=None):
+    """scaled_dot_product_attention on x with the mask as a bf16 attn_mask
+    (uk / 8 on valid refs, -inf on invalid ones, plus the log bias): the
+    function of modes "none" / "input", with bf16 logit terms and output,
+    and NaN where a lane has no valid ref. The yardstick of library_ms; the
+    port never calls it."""
     import torch
+    import torch.nn.functional as F
 
-    def once(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMING_INNER):
-            fn()
-        stop.record()
-        stop.synchronize()
-        return start.elapsed_time(stop) / TIMING_INNER
-
-    plain_fn(), kernel_fn()
-    torch.cuda.synchronize()
-    plain, kernel = [], []
-    for i in range(repeats):
-        order = [(plain, plain_fn), (kernel, kernel_fn)]
-        for acc, fn in (order if i % 2 == 0 else order[::-1]):
-            acc.append(once(fn))
-    return statistics.median(kernel), statistics.median(plain)
+    mask = torch.where(x["valid"][:, None, None, :], x["uk"][:, :, None, :] * 0.125,
+                       float("-inf"))
+    if bias is not None:
+        mask = mask + bias
+    mask = mask.to(torch.bfloat16)
+    return lambda: F.scaled_dot_product_attention(x["q"], x["k"], x["v"], attn_mask=mask)
 
 
 def phase_device():
@@ -117,26 +179,9 @@ def phase_build():
 
 
 def _attention_inputs(gen, b, n, m, dev):
-    import torch
+    from mega_pytorch_tpu_torch.tools.kernel_bench import attention_inputs
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device=dev) * scale
-
-    def boxes(count):
-        ctr = torch.rand(b, count, 2, generator=gen, device=dev) * torch.tensor(
-            [CANVAS[1], CANVAS[0]], device=dev)
-        wh = 16 + torch.rand(b, count, 2, generator=gen, device=dev) * 300
-        return torch.cat([ctr - wh / 2, ctr + wh / 2], -1).contiguous()
-
-    bf = torch.bfloat16
-    return dict(
-        q=randn(b, 16, n, 64).to(bf), k=randn(b, 16, m, 64).to(bf),
-        v=randn(b, 16, m, 64).to(bf), uk=randn(b, 16, m, scale=8.0),  # as q.k
-        valid=torch.rand(b, m, generator=gen, device=dev) > 0.2,
-        rois=boxes(n), refs=boxes(m),
-        wk=randn(64, 16, scale=0.05),
-        wb=torch.rand(16, generator=gen, device=dev) * 0.1,
-    )
+    return attention_inputs(gen, b, n, m, dev, CANVAS)
 
 
 def _attention_fns(ra, mode, x, bias=None):
@@ -154,6 +199,24 @@ def _attention_fns(ra, mode, x, bias=None):
     return (lambda: ra.flash_relation_attention_bias(*base, bias, x["valid"]),
             lambda: ra.reference_relation_attention(*base, bias, x["valid"]),
             ATOL_NONE)
+
+
+def _check_tiled(ra, x, got, label):
+    """Mode "compute" output ``got`` against the tiled plain version, lane by
+    lane: the largest error within 2^-7 max|v| and the mean within
+    MEAN_POS_TILED. Returns (largest, mean, bound)."""
+    from mega_pytorch_tpu_torch.tools.kernel_bench import per_lane
+
+    args = (x["q"], x["k"], x["v"], x["uk"], x["rois"], x["refs"], x["wk"], x["wb"],
+            x["valid"])
+    tiled = per_lane(ra.reference_relation_attention_pos_tiled, args, x["q"].shape[0])
+    diff = (got - tiled).abs()
+    err, mean = diff.max().item(), diff.mean().item()
+    bound = 2.0 ** -7 * x["v"].float().abs().max().item()
+    if not (err <= bound and mean <= MEAN_POS_TILED):
+        _fail(f"{label}: {err} (mean {mean}) from the tiled plain version, above "
+              f"{bound} (mean {MEAN_POS_TILED})")
+    return err, mean, bound
 
 
 def _stage_bias(pb, x):
@@ -195,23 +258,36 @@ def phase_kernels():
               f"plain {plain_ms:.4f} ms")
         if not exact:
             _fail(f"stem_pool {tag} is not bit-exact with its plain version")
-        if dtype == torch.bfloat16:
-            rows["stem_pool_packed"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        if dtype == torch.bfloat16:  # bound: bytes in and out, 4 f32 ops an input
+            rows["stem_pool_packed"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **_bound(_nbytes(y, got), f32_ops=4 * y.numel()))
 
     def check_attention(label, n, m, pos):
+        mode = "compute" if pos else "none"
         x = _attention_inputs(gen, 1, n, m, dev)
-        kern, plain, tol = _attention_fns(ra, "compute" if pos else "none", x)
+        kern, plain, tol = _attention_fns(ra, mode, x)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             _fail(f"{label}: non-finite kernel output")
         err = (got - want).abs().max().item()
         ms, plain_ms = _time_pair(plain, kern)
-        print(f"[kernels] {label} N={n} M={m}: max_abs_err {err:.3e} "
-              f"(atol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **_attention_bound(mode, x))
+        tiled = ""
+        if pos:
+            err_t, mean_t, bound_t = _check_tiled(ra, x, got, label)
+            row["library_ms"] = None
+            tiled = (f", tiled {err_t:.3e} (atol {bound_t:.3e}), mean {mean_t:.2e} "
+                     f"(atol {MEAN_POS_TILED})")
+        else:
+            row["library_ms"] = _time_pair(_library_fn(x), kern)[1]
+        print(f"[kernels] {label} N={n} M={m}: max_abs_err {err:.3e} (atol {tol})"
+              f"{tiled}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library {row['library_ms']}")
         if not err <= tol:
             _fail(f"{label}: max_abs_err {err} above atol {tol}")
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        return row
 
     # every shape the detect step gives the kernels; a table row carries the
     # first shape's times and the largest error over all of its shapes
@@ -278,8 +354,10 @@ def phase_kernels():
           f"{ATOL_NONE}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     if not err <= ATOL_NONE:
         _fail(f"relation_attention input: max_abs_err {err} above atol {ATOL_NONE}")
-    rows["flash_relation_attention_bias"] = dict(max_abs_err=err, ms=ms,
-                                                 plain_ms=plain_ms)
+    kern = lambda: ra.flash_relation_attention_bias(*args)  # noqa: E731
+    rows["flash_relation_attention_bias"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, **_attention_bound("input", x, bias),
+        library_ms=_time_pair(_library_fn(x, bias), kern)[1])
     z = ra.flash_relation_attention_bias(*args[:5], torch.zeros_like(x["valid"]))
     print(f"[kernels] all-invalid refs, mode input: max |out| {z.abs().max().item()}")
     if z.abs().max().item() != 0.0:
@@ -300,7 +378,12 @@ def phase_kernels():
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     if not (torch.isfinite(got).all() and excess <= 0.0):
         _fail("fused_position_bias differs from its plain version beyond tolerance")
-    rows["fused_position_bias"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # bound: per pair 4 + 16 logs, 64 sinusoids, 16 x 64 FMAs, 16 bias adds
+    # and relus, all f32; the (16, N, M) f32 output written once
+    n_pairs = pargs[0].shape[0] * pargs[1].shape[0]
+    rows["fused_position_bias"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **_bound(_nbytes(*pargs, got), f32_ops=n_pairs * (20 + 64 + 2 * 1024 + 32)))
 
     # the path's kernels at the 12-lane step's shapes (2 x 12 frames, B=12)
     y = (torch.randn(2 * LANES, 152, 256, 256, generator=gen, device=dev) * 2
@@ -311,14 +394,18 @@ def phase_kernels():
                         sp.stem_pool_packed_reference(y, scale, shift, 64))
     ms, plain_ms = _time_pair(lambda: sp.stem_pool_packed_reference(y, scale, shift, 64),
                               lambda: sp.stem_pool_packed(y, scale, shift, 64), repeats=5)
+    bound = _bound(_nbytes(y) + y.numel() // 4 * y.element_size(), f32_ops=4 * y.numel())
     print(f"[kernels] {LANES} lanes: stem_pool bf16 ({2 * LANES},152,256,256): exact "
-          f"{exact}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{exact}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     if not exact:
         _fail("stem_pool is not bit-exact at the 12-lane shape")
     del y
     for mode, label, n, m in (("none", "global enhance", 2175, 750),
                               ("none", "global residual", 300, 750),
                               ("compute", "stage 0", 675, 3750),
+                              ("compute", "stage 1", 675, 750),
+                              ("compute", "stage 2", 300, 750),
                               ("input", "stage 0", 675, 3750)):
         x = _attention_inputs(gen, LANES, n, m, dev)
         bias = _stage_bias(pb, x) if mode == "input" else None
@@ -327,10 +414,17 @@ def phase_kernels():
         err = (got - plain()).abs().max().item()
         if not torch.isfinite(got).all():
             _fail(f"relation_attention {mode} ({label}) at B={LANES}: non-finite")
+        tiled = ""
+        if mode == "compute":
+            err_t, mean_t, bound_t = _check_tiled(ra, x, got, f"compute ({label}) B={LANES}")
+            tiled = (f", tiled {err_t:.3e} (atol {bound_t:.3e}), mean {mean_t:.2e} (atol "
+                     f"{MEAN_POS_TILED})")
         ms, plain_ms = _time_pair(plain, kern, repeats=5)
+        bound = _attention_bound(mode, x, bias)
         print(f"[kernels] {LANES} lanes: relation_attention {mode} ({label}) B={LANES} "
-              f"N={n} M={m}: max_abs_err {err:.3e} (atol {tol}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"N={n} M={m}: max_abs_err {err:.3e} (atol {tol}){tiled}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})")
         if not err <= tol:
             _fail(f"relation_attention {mode} ({label}) at B={LANES}: max_abs_err {err}")
         del x, bias, got, kern, plain
@@ -489,7 +583,8 @@ class _SyntheticVideos:
 def run_lanes(model, ds, lanes, dev):
     """Serve ``ds`` through ``compute_on_dataset_lockstep`` with ``lanes``
     lanes and check the run; returns (per-step ms, emissions per step,
-    launches, run seconds). Device-agnostic, so it also runs on the CPU."""
+    launches, launches per step as measured, run seconds). Device-agnostic,
+    so it also runs on the CPU."""
     import torch
     from mega_pytorch_tpu_torch.engine import batched_inference as bi
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
@@ -499,10 +594,14 @@ def run_lanes(model, ds, lanes, dev):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
+
+    # every kernel, those no model path launches too, so that their 0 per
+    # step is measured as well
     kernels = (sp.stem_pool_packed, ra.flash_relation_attention,
-               ra.flash_relation_attention_pos)
-    per_step = {"stem_pool_packed": 1, "flash_relation_attention": 2,
-                "flash_relation_attention_pos": 3}
+               ra.flash_relation_attention_pos, ra.flash_relation_attention_bias,
+               pb.fused_position_bias)
+    per_step = {k.__name__: PER_STEP[k.__name__] for k in kernels}
     if dev.type != "cuda":  # plain versions: no launches
         per_step = dict.fromkeys(per_step, 0)
     slots = model.c.detections_per_img
@@ -549,7 +648,7 @@ def run_lanes(model, ds, lanes, dev):
     print(f"[lanes] {steps} steps of {lanes} lanes; launches {launches}; per step "
           f"{per_step} expected, steps that differ: {record['bad_counts'][:3]}")
     if record["bad_counts"] or steps == 0:
-        _fail("lockstep kernel launch counts per step differ from 1/2/3")
+        _fail(f"lockstep kernel launch counts per step differ from {per_step}")
     once = bool((ds.info_calls == 1).all()) and sorted(results) == list(range(n_frames))
     print(f"[lanes] frames emitted exactly once: {once} ({len(results)} of "
           f"{n_frames}; {sum(record['emitted'])} emissions)")
@@ -572,7 +671,7 @@ def run_lanes(model, ds, lanes, dev):
     print(f"[lanes] determinism: {len(record['dets'])} steps re-run from fresh "
           f"carries: detections bit-identical ({len(record['dets']) * lanes * slots} "
           f"slots)")
-    return record["ms"], record["emitted"], launches, wall
+    return record["ms"], record["emitted"], launches, per_step, wall
 
 
 def phase_lanes(smi):
@@ -590,8 +689,8 @@ def phase_lanes(smi):
           f"{model.lanes} lanes in {time.perf_counter() - t0:.1f} s; {NUM_VIDEOS} "
           f"videos of {lengths.min()}-{lengths.max()} frames, {lengths.sum()} frames")
     torch.cuda.reset_peak_memory_stats()
-    step_ms, emitted, launches, wall = run_lanes(model, ds, model.lanes,
-                                                 torch.device("cuda"))
+    step_ms, emitted, launches, per_step, wall = run_lanes(model, ds, model.lanes,
+                                                           torch.device("cuda"))
     peak = torch.cuda.max_memory_allocated() / 2**20
     steady = step_ms[5:]
     ms = statistics.median(steady)
@@ -606,7 +705,7 @@ def phase_lanes(smi):
     print(f"[lanes] whole run: {n_frames} frames emitted in {wall:.2f} s = "
           f"{n_frames / wall:.2f} frames/s (warm-up steps and idle tail "
           f"included); peak memory {peak:.0f} MiB; {smi}")
-    return launches
+    return launches, per_step
 
 
 def phase_position_bias_paths():
@@ -674,7 +773,7 @@ def main():
     import torch
 
     torch.cuda.empty_cache()
-    lane_launches = phase_lanes(smi)
+    lane_launches, per_step = phase_lanes(smi)
     path_launches = phase_position_bias_paths()
 
     source = {
@@ -694,14 +793,16 @@ def main():
             "mega_pytorch_tpu/ops/pallas/position_bias.py:112"),
     }
     # launches: the model path's kernels count in the lanes run (phase 6);
-    # the two kernels no model path reaches count in their own path (phase 7)
+    # the two kernels no model path reaches count in their own path (phase 7);
+    # launches_per_step is what every step of the lanes run launched
     counts = {**lane_launches, **path_launches}
     print(f"[result] launches per kernel: stream (1 lane) {launches}; lanes "
           f"({LANES}) {lane_launches}; position-bias paths {path_launches}")
     table = []
     for kname, (route, src, replaces) in source.items():
         table.append(dict(name=kname, route=route, source=src, replaces=replaces,
-                          launches=counts[kname], **rows[kname]))
+                          launches=counts[kname], launches_per_step=per_step[kname],
+                          **rows[kname]))
     print(f"[result] {smi}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

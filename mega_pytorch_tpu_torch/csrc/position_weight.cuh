@@ -1,18 +1,25 @@
-// Relation-attention position weight, device side: the one definition of the
-// geometry -> sinusoid -> Wg contraction that both the flash attention
-// kernel (mode "compute", relation_attention.cu) and the standalone bias
-// kernel (position_bias.cu) use, so the two cannot fork the convention
-// (the JAX package keeps its single bias_freq_scales for the same reason).
+// Relation-attention position weight, device side: what the standalone bias
+// kernel (position_bias.cu) and the flash attention kernel's mode "compute"
+// (relation_attention.cu) share, so the two cannot fork the convention (the
+// JAX package keeps its single bias_freq_scales for the same reason):
 //
-//   pos  = (log(|dcx| / w + 1e-3), log(|dcy| / h + 1e-3), log(w / w'), log(h / h'))
+//   - the box geometry: +1 widths, the 1e-3 w/h clamp (geometry);
+//   - the parameter block: Wg (E, G) row-major, its bias (G,), then the F
+//     sinusoid frequencies 100 / 1000^(f/F) (ops/kernels/position_bias.py
+//     packs it; bias_of and FREQ);
+//   - the Wg row order (channel, sin|cos, freq) over the channels
+//     pos = (log(|dcx| / w + 1e-3), log(|dcy| / h + 1e-3), log(w / w'), log(h / h'))
+//     (wg_row);
+//
 //   sums[g] = sum over channel c and frequency f of
 //             sin(pos[c] * fr[f]) * Wg[c*2F + f, g] + cos(pos[c] * fr[f]) * Wg[c*2F + F + f, g]
 //
-// with +1 box widths and the 1e-3 w/h clamp; the caller adds the Wg bias.
-// Parameters arrive as one f32 block: Wg (E, G) row-major, its bias (G,),
-// then the F sinusoid frequencies (ops/kernels/position_bias.py packs it).
-// Sinusoids use the range-reduced sincosf: the arguments reach |x| ~ 800
-// rad, where __sinf/__cosf lose accuracy.
+// Where they differ: the bias kernel evaluates all four channels pairwise
+// in f32 with the range-reduced sincosf and contracts them with f32 Wg
+// (weight_sums). Mode "compute" evaluates only dx/dy pairwise, with the
+// reduction of sincos_reduced and the hardware sine, contracts those
+// features with Wg as bf16 hi/lo pairs on the tensor cores, and takes dw/dh
+// through separable row and column factors (its source note).
 
 #pragma once
 
@@ -24,7 +31,13 @@ namespace posw {
 constexpr int G = 16;  // attention groups
 constexpr int E = 64;  // position embedding width (4 channels x 2 x F)
 constexpr int F = 8;   // sinusoid frequencies
+constexpr int FREQ = E * G + G;        // offset of the frequencies
 constexpr int PARAMS = E * G + G + F;  // floats in the parameter block
+
+// Wg row of channel c (0 dx, 1 dy, 2 dw, 3 dh), sine (0) or cosine (1), freq f
+__host__ __device__ constexpr int wg_row(int c, int cosine, int f) {
+  return c * 2 * F + cosine * F + f;
+}
 
 __device__ __forceinline__ float4 geometry(const float* box) {
   // (w, h, cx, cy) with the reference's 1e-3 clamp and +1 widths
@@ -65,6 +78,21 @@ __device__ __forceinline__ void weight_sums(float4 a, float4 c,
 
 __device__ __forceinline__ const float* bias_of(const float* params) {
   return params + E * G;  // (G,)
+}
+
+// sin and cos of x (|x| up to ~800 rad here) by an f32 reduction to
+// [-pi, pi], r = x - round(x / 2pi) * 2pi with each step rounded as written
+// (no contraction; round half to even by adding and subtracting 1.5 * 2^23,
+// which equals rintf for |x / 2pi| < 2^22 and keeps the conversion unit
+// free), then the hardware approximations, whose absolute error on
+// [-pi, pi] is below 2^-21. No slow path, so no stack frame. The plain
+// version (ops/kernels/relation_attention.py, _sincos_reduced) repeats the
+// reduction step for step.
+__device__ __forceinline__ void sincos_reduced(float x, float& s, float& c) {
+  const float t = __fmul_rn(x, 0.15915494309189535f);
+  const float k = __fsub_rn(__fadd_rn(t, 12582912.0f), 12582912.0f);
+  const float r = __fsub_rn(x, __fmul_rn(k, 6.283185307179586f));
+  __sincosf(r, &s, &c);
 }
 
 }  // namespace posw

@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels (``csrc/*.cu``).
 
-All sources are compiled by ``nvcc`` for ``sm_90a`` into ONE shared library
-with a plain C interface, loaded with ``ctypes``; no PyTorch headers are
-involved, so a build takes seconds. The library's file name carries a hash of
+All sources are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and linked into ONE shared library with a
+plain C interface, loaded with ``ctypes``; no PyTorch headers are involved,
+so a build takes seconds. The library's file name carries a hash of
 the flags and of every source and header (``*.cu``, ``*.cuh``), so an edited
 file is rebuilt on first use and an unchanged tree is loaded as it is.
 Nothing here runs at import time.
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -69,28 +70,36 @@ def _digest(files: list[Path]) -> str:
 _LOADED: list[KernelLibrary] = []  # the process's library, once loaded
 
 
-def load_library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library, once per process."""
-    if _LOADED:
-        return _LOADED[0]
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = _digest(sorted([*sources, *CSRC.glob("*.cuh")]))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = BUILD_DIR / f"libmega_kernels_{digest}.so"
+def build_library(csrc: Path, build_dir: Path) -> KernelLibrary:
+    """Build (if needed) and load the library of the sources in ``csrc``
+    (every ``*.cu``, hashed with every ``*.cuh``) into ``build_dir``
+    (tools/kernel_ab.py also builds another commit's ``csrc`` with it)."""
+    sources = sorted(csrc.glob("*.cu"))
+    digest = _digest(sorted([*sources, *csrc.glob("*.cuh")]))
+    build_dir.mkdir(parents=True, exist_ok=True)
+    target = build_dir / f"libmega_kernels_{digest}.so"
     t0 = time.perf_counter()
     built, ptxas = False, []
     if not target.exists():
+        objs = [build_dir / f"{src.stem}_{digest}.{os.getpid()}.o" for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for proc, log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
         os.replace(tmp, target)
+        for obj in objs:
+            obj.unlink()
         built = True
         ptxas = [
-            line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+            line.strip() for line in "".join(logs).splitlines()
             if any(key in line for key in ("Compiling entry", "registers",
                                            "smem", "bytes stack frame"))
         ]
@@ -99,9 +108,15 @@ def load_library() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    record = KernelLibrary(lib, target, built, time.perf_counter() - t0, ptxas)
-    _LOADED.append(record)
-    return record
+    return KernelLibrary(lib, target, built, time.perf_counter() - t0, ptxas)
+
+
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the package's kernel library, once per
+    process."""
+    if not _LOADED:
+        _LOADED.append(build_library(CSRC, BUILD_DIR))
+    return _LOADED[0]
 
 
 def check_launch(status: int, name: str) -> None:

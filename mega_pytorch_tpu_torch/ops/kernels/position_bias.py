@@ -4,9 +4,10 @@
 ``fused_position_bias`` replaces the Pallas kernel of the same name: the
 standalone (g, N, M) log bias, launched from ``csrc/position_bias.cu`` on a
 CUDA tensor (design and bound in its source note). The flash attention
-kernel computes the same position weight in-kernel; both kernels take the
-geometry, sinusoids and Wg contraction from ``csrc/position_weight.cuh`` and
-their parameters as the block ``kernel_params`` packs.
+kernel's mode "compute" computes the same position weight in-kernel; both
+kernels take the box geometry, the frequency ladder and Wg's row order from
+``csrc/position_weight.cuh`` and their parameters as the block
+``kernel_params`` packs (where their arithmetic differs: the header's note).
 """
 
 from __future__ import annotations
@@ -123,14 +124,20 @@ def fused_position_bias(rois, ref_rois, wg_kernel, wg_bias, embed_dim: int = 64)
                 or not t.is_contiguous() or t.device != rois.device):
             raise ValueError(f"{name} must be a contiguous f32 {shape} on {rois.device}")
     out = torch.empty((GROUPS, n, m), dtype=torch.float32, device=rois.device)
-    params = kernel_params(wg_kernel, wg_bias)
-    status = load_library().lib.position_bias_launch(
-        rois.data_ptr(), ref_rois.data_ptr(), params.data_ptr(), out.data_ptr(),
-        n, m, torch.cuda.current_stream(rois.device).cuda_stream,
-    )
-    check_launch(status, "position_bias")
+    _launch(rois, ref_rois, kernel_params(wg_kernel, wg_bias), out)
     fused_position_bias.launches += 1
     return out
+
+
+def _launch(rois, ref_rois, params, out, lib=None):
+    """Write the (g, N, M) log bias into ``out``. ``lib``: the kernel library
+    (default: the package's own)."""
+    lib = load_library().lib if lib is None else lib
+    status = lib.position_bias_launch(
+        rois.data_ptr(), ref_rois.data_ptr(), params.data_ptr(), out.data_ptr(),
+        rois.shape[0], ref_rois.shape[0], torch.cuda.current_stream(rois.device).cuda_stream,
+    )
+    check_launch(status, "position_bias")
 
 
 fused_position_bias.launches = 0

@@ -7,10 +7,14 @@ bias (``_fused_fwd_batched`` bias_mode "none");
 (bias_mode "compute": the position weight evaluated inside the kernel); and
 ``flash_relation_attention_bias`` replaces ``fused_relation_attention`` with a
 precomputed log bias (bias_mode "input"). All three launch
-``csrc/relation_attention.cu``: modes "none" and "input" its tensor-core
-kernel, one block per (lane, group, 64 query rows); mode "compute" its
-CUDA-core kernel, which shares each tile's position weight across the groups
-(bound, design and numerics in its source note).
+``csrc/relation_attention.cu`` on the tensor cores: modes "none" and "input"
+one block per (lane, group, 64 query rows); mode "compute" one block per
+(lane, 2 groups, 64 query rows), eight of them a cluster that evaluates
+each tile's dx/dy sinusoids once for all 16 groups, with the dw/dh term
+through the separable factors of ``wh_factors`` (bound, design and
+numerics in its source note). ``reference_relation_attention_pos_tiled`` is
+mode "compute" in the kernel's arithmetic; ``reference_relation_attention_pos``
+(f32 sinusoids, additive log bias) is the loose yardstick.
 
 Layouts are the JAX package's: q (B, g, N, d), k and v (B, g, M, d), uk
 (B, g, M), valid (B, M), rois (B, N, 4), ref_rois (B, M, 4), Wg (E, g),
@@ -25,12 +29,20 @@ import math
 import torch
 
 from .build import check_launch, load_library
-from .position_bias import EMBED_DIM, GROUPS, kernel_params, reference_position_bias
+from .position_bias import (
+    EMBED_DIM,
+    GROUPS,
+    _geometry,
+    bias_freq_scales,
+    kernel_params,
+    reference_position_bias,
+)
 
 NEG_INF = -1e30
 HEAD_DIM = 64
 REF_TILE = 64  # refs per tile of the kernels' online softmax
 MODE_NONE, MODE_COMPUTE, MODE_INPUT = 0, 1, 2
+TWO_PI = 6.283185307179586
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -39,20 +51,48 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def _masked_logits(q, k, uk, valid, bias=None):
+    """(q.k + uk) / sqrt(d) with bf16 operands (+ the log bias), -1e30 on
+    invalid refs."""
+    s = _bf16(q) @ _bf16(k).transpose(-1, -2)
+    s = (s + uk.float()[..., None, :]) * (1.0 / math.sqrt(q.shape[-1]))
+    if bias is not None:
+        s = s + bias
+    return torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+
+
 def reference_relation_attention(q, k, v, uk, bias, valid):
     """Plain version: (B, g, N, d) output with bf16 QK/PV operands, f32 sums.
 
     bias: (B, g, N, M) additive log bias, or None."""
-    d = q.shape[-1]
-    aff = _bf16(q) @ _bf16(k).transpose(-1, -2)
-    aff = (aff + uk.float()[..., None, :]) * (1.0 / math.sqrt(d))
-    if bias is not None:
-        aff = aff + bias
-    keep = valid[:, None, None, :]
-    aff = torch.where(keep, aff, torch.full_like(aff, NEG_INF))
+    aff = _masked_logits(q, k, uk, valid, bias)
     soft = torch.softmax(aff, dim=-1)
     soft = torch.where(valid.any(-1)[:, None, None, None], soft, torch.zeros_like(soft))
     return _bf16(soft) @ _bf16(v)
+
+
+def _online_softmax_pv(s, keep, v, weight=None):
+    """softmax(s) . v in the kernels' order: refs in tiles of ``REF_TILE``,
+    p = exp(s - running max) (times ``weight``, mode "compute") rounded to
+    bf16 before PV, the f32 sum of p normalising at the end; rows whose sum
+    is 0 give zeros."""
+    run_max = torch.full(s.shape[:-1], NEG_INF, device=s.device)
+    run_sum = torch.zeros(s.shape[:-1], device=s.device)
+    acc = torch.zeros((*s.shape[:-1], v.shape[-1]), device=s.device)
+    for m0 in range(0, s.shape[-1], REF_TILE):
+        st = s[..., m0:m0 + REF_TILE]
+        new_max = torch.maximum(run_max, st.amax(-1))
+        alpha = torch.exp(run_max - new_max)
+        e = torch.exp(st - new_max[..., None])
+        if weight is not None:
+            e = e * weight[..., m0:m0 + REF_TILE]
+        p = torch.where(keep[..., m0:m0 + REF_TILE], e, torch.zeros_like(st))
+        run_sum = run_sum * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _bf16(p) @ _bf16(v[..., m0:m0 + REF_TILE, :])
+        run_max = new_max
+    pos = run_sum > 0
+    return torch.where(pos[..., None], acc / torch.where(pos, run_sum, 1.0)[..., None],
+                       torch.zeros_like(acc))
 
 
 def reference_relation_attention_tiled(q, k, v, uk, bias, valid):
@@ -62,28 +102,90 @@ def reference_relation_attention_tiled(q, k, v, uk, bias, valid):
     kernel does. ``reference_relation_attention`` rounds the normalised
     softmax instead; where a few refs carry a row's weight the two differ by
     up to 2^-7 max|v| (two roundings to bf16, unit roundoff 2^-8 each)."""
-    d = q.shape[-1]
-    s = _bf16(q) @ _bf16(k).transpose(-1, -2)
-    s = (s + uk.float()[..., None, :]) * (1.0 / math.sqrt(d))
-    if bias is not None:
-        s = s + bias
-    keep = valid[:, None, None, :]
-    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-    run_max = torch.full(q.shape[:-1], NEG_INF, device=q.device)
-    run_sum = torch.zeros(q.shape[:-1], device=q.device)
-    acc = torch.zeros(q.shape, device=q.device)
-    for m0 in range(0, s.shape[-1], REF_TILE):
-        st = s[..., m0:m0 + REF_TILE]
-        new_max = torch.maximum(run_max, st.amax(-1))
-        alpha = torch.exp(run_max - new_max)
-        p = torch.where(keep[..., m0:m0 + REF_TILE], torch.exp(st - new_max[..., None]),
-                        torch.zeros_like(st))
-        run_sum = run_sum * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + _bf16(p) @ _bf16(v[..., m0:m0 + REF_TILE, :])
-        run_max = new_max
-    pos = run_sum > 0
-    return torch.where(pos[..., None], acc / torch.where(pos, run_sum, 1.0)[..., None],
-                       torch.zeros_like(acc))
+    return _online_softmax_pv(_masked_logits(q, k, uk, valid, bias),
+                              valid[:, None, None, :], v)
+
+
+def _sincos_reduced(x):
+    """sin and cos after the kernel's f32 reduction to [-pi, pi]
+    (``posw::sincos_reduced``): r = x - round(x / 2pi) * 2pi, each step
+    rounded to f32 as written."""
+    r = x - torch.round(x * (1.0 / TWO_PI)) * TWO_PI
+    return torch.sin(r), torch.cos(r)
+
+
+def wh_factors(rois, ref_rois, wg_kernel, dtype=torch.float16):
+    """The separable dw/dh factors of mode "compute" (the JAX package's
+    ``_wh_factors``, with the kernel's sinusoids).
+
+    The dw/dh angle is f * (log w_n - log w_m), so by angle addition its
+    sine and cosine terms are rank-2 products of per-row and per-ref
+    sinusoids; folding Wg's dw/dh rows into the ref side makes their whole
+    contribution ``S[n] . T[g, :, m]``, a K=32 contraction per group.
+
+    rois (..., N, 4), ref_rois (..., M, 4), wg_kernel (E, g). Returns S
+    (..., N, 32) f32, columns (sin, cos) of f log w then of f log h, and T
+    (..., g, 32, M) in ``dtype`` (folded in f32, then rounded; fp16 as the
+    kernel keeps it, bf16 as the JAX package), rows (alpha, beta) of dw then
+    of dh with alpha = ws cos b + wc sin b and beta = wc cos b - ws sin b."""
+    nf = EMBED_DIM // 8
+    freqs = torch.tensor(bias_freq_scales(nf), dtype=torch.float32, device=rois.device)
+
+    def log_wh(r):
+        w, h, _, _ = _geometry(r.float())
+        return torch.log(w), torch.log(h)
+
+    rows = [_sincos_reduced(lg[..., None] * freqs) for lg in log_wh(rois)]
+    s = torch.cat([t for sc in rows for t in sc], dim=-1)  # (..., N, 4F)
+    wt = wg_kernel.float().T[..., None]  # (g, E, 1)
+    parts = []
+    for c, lg in zip((2, 3), log_wh(ref_rois)):  # dw, dh
+        ws = wt[:, c * 2 * nf:c * 2 * nf + nf]  # (g, F, 1): the sine rows
+        wc = wt[:, c * 2 * nf + nf:(c + 1) * 2 * nf]  # the cosine rows
+        sin_b, cos_b = (x.transpose(-1, -2)[..., None, :, :]  # (..., 1, F, M)
+                        for x in _sincos_reduced(lg[..., None] * freqs))
+        parts += [ws * cos_b + wc * sin_b, wc * cos_b - ws * sin_b]
+    t = torch.cat(parts, dim=-2)  # (..., g, 4F, M)
+    return s, t.to(dtype)
+
+
+def position_weight_tiled(rois, ref_rois, wg_kernel, wg_bias, sin_dtype=torch.float32,
+                          wh_dtype=torch.float16):
+    """(B, g, N, M) position weight pw = relu(.) + 1e-6 in mode "compute"'s
+    arithmetic: the dx/dy sinusoids and Wg in ``sin_dtype`` with f32 sums
+    (float32: the kernel's hi/lo bf16 products carry ~15 bits, and the
+    Pallas kernel in interpret mode is f32; bfloat16: the Pallas kernel's
+    MXU on the TPU), the dw/dh term as S . T from ``wh_factors`` with both
+    rounded to ``wh_dtype`` (float16: the kernel; bfloat16: the Pallas
+    kernel), the dx/dy quotient by the reciprocal width."""
+    nf = EMBED_DIM // 8
+    w, h, cx, cy = _geometry(rois.float())
+    _, _, cx_r, cy_r = _geometry(ref_rois.float())
+    dx = torch.log(((cx[..., :, None] - cx_r[..., None, :]) * (1.0 / w)[..., :, None]).abs()
+                   + 1e-3)
+    dy = torch.log(((cy[..., :, None] - cy_r[..., None, :]) * (1.0 / h)[..., :, None]).abs()
+                   + 1e-3)
+    freqs = torch.tensor(bias_freq_scales(nf), dtype=torch.float32, device=rois.device)
+    feats = torch.cat([t for d in (dx, dy) for t in _sincos_reduced(d[..., None] * freqs)],
+                      dim=-1)  # (B, N, M, 4F): Wg's dx/dy row order
+    part = (feats.to(sin_dtype).float()
+            @ wg_kernel[:4 * nf].to(sin_dtype).float())  # (B, N, M, g)
+    s, t = wh_factors(rois, ref_rois, wg_kernel, wh_dtype)
+    c_wh = s.to(wh_dtype).float()[:, None] @ t.float()  # (B, g, N, M)
+    pw = part.movedim(-1, 1) + c_wh + wg_bias.float()[:, None, None]
+    return pw.clamp_min(0.0) + 1e-6
+
+
+def reference_relation_attention_pos_tiled(q, k, v, uk, rois, ref_rois, wg_kernel,
+                                           wg_bias, valid, sin_dtype=torch.float32,
+                                           wh_dtype=torch.float16):
+    """Mode "compute" in the kernel's arithmetic: ``position_weight_tiled``
+    multiplied into exp(s - running max of the qk logits) over tiles of
+    ``REF_TILE`` refs, p * pw rounded to bf16 before PV, the f32 sum of
+    p * pw normalising at the end (the Pallas kernel's multiplicative form)."""
+    pw = position_weight_tiled(rois, ref_rois, wg_kernel, wg_bias, sin_dtype, wh_dtype)
+    return _online_softmax_pv(_masked_logits(q, k, uk, valid), valid[:, None, None, :], v,
+                              weight=pw)
 
 
 def reference_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
@@ -134,12 +236,13 @@ def _check_bias(q, k, bias):
 
 
 def _launch(q, k, v, uk, valid, mode, rois=None, refs=None, params=None,
-            bias=None):
-    """Launch in ``mode``; the operands a mode does not read pass as null."""
+            bias=None, lib=None):
+    """Launch in ``mode``; the operands a mode does not read pass as null.
+    ``lib``: the kernel library (default: the package's own)."""
     b, _, n, _ = q.shape
     m = k.shape[2]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    lib = load_library().lib
+    lib = load_library().lib if lib is None else lib
 
     def ptr(t):
         return None if t is None else t.data_ptr()

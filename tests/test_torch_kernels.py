@@ -15,6 +15,7 @@ from mega_pytorch_tpu.ops.pallas.position_bias import (
 )
 from mega_pytorch_tpu.ops.pallas.relation_attention import (
     _fused_fwd_batched,
+    _wh_factors,
     reference_relation_attention as jax_reference_attention,
 )
 from mega_pytorch_tpu.ops.pallas.stem_pool import stem_pool_packed as jax_stem_pool
@@ -189,3 +190,56 @@ def test_all_invalid_refs_give_exact_zeros():
     assert float(none.abs().max()) == 0.0
     assert float(pos.abs().max()) == 0.0
     assert float(np.abs(_jax_flash(x, pos=False)).max()) == 0.0
+
+
+@pytest.mark.parametrize("n,m,seed", [(37, 300, 22), (65, 130, 23)])
+def test_tiled_pos_plain_version_matches_pallas(n, m, seed):
+    """Mode "compute" in the kernel's arithmetic against the Pallas kernel
+    run with 64-ref tiles, ragged on both axes: the multiplicative form
+    p = exp(s - max of the qk logits) * pw with p * pw rounded to bf16 before
+    PV, the separable dw/dh term, relu and + 1e-6."""
+    x = _attention_data(seed, n=n, m=m)
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    want = np.asarray(_fused_fwd_batched(
+        j["q"], j["k"], j["v"], j["uk"], (j["rois"], j["refs"], j["wk"], j["wb"]),
+        j["valid"], embed_dim=E, tile_m=64, interpret=True))
+    got = ra.reference_relation_attention_pos_tiled(*_pos_args(x),
+                                                    wh_dtype=torch.bfloat16).numpy()
+    # Both round p * pw, S and T to bf16, with f32 dx/dy features.
+    # pw differs in its last f32 bits (the Pallas polynomial sine, |error| <
+    # 2e-4, against torch.sin; w / w' against the reciprocal), which can move
+    # a p * pw across a bf16 rounding boundary: one step, 2^-8, of a ref
+    # that carries a row moves the row by up to 2^-8 max|v| (5.1e-3 seen,
+    # where one ref carries 36 % of a row).
+    atol = 2.0 ** -8 * float(np.abs(ra._bf16(_t(x["v"])).numpy()).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_wh_factors_match_jax():
+    """S and T of the port against the JAX package's ``_wh_factors``, T
+    rounded to bf16 as there (the kernel keeps fp16). S is f32: the two
+    sines differ by the Pallas polynomial's error (< 2e-4). T is rounded to
+    bf16 in both, so that error can move a value across one rounding
+    boundary: 2^-9 at |T| < 0.5."""
+    x = _attention_data(24)
+    s_j, t_j = _wh_factors(jnp.asarray(x["rois"]), jnp.asarray(x["refs"]),
+                           jnp.asarray(x["wk"]), E // 8)
+    s, t = ra.wh_factors(_t(x["rois"]), _t(x["refs"]), _t(x["wk"]), torch.bfloat16)
+    assert s.shape == (B, N, 32) and s.dtype == torch.float32
+    assert t.shape == (B, G, 32, M) and t.dtype == torch.bfloat16
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), rtol=0, atol=2e-4)
+    t_want = np.asarray(t_j.astype(jnp.float32))
+    assert np.abs(t_want).max() < 0.5
+    np.testing.assert_allclose(t.float().numpy(), t_want, rtol=0, atol=2.0 ** -9 + 2e-4)
+
+
+@pytest.mark.parametrize("n,m,seed", [(37, 300, 25), (65, 3750, 26)])
+def test_tiled_pos_plain_version_within_flat(n, m, seed):
+    """The tiled plain version of mode "compute" within ATOL_POS of the flat
+    f32 one (additive log bias, softmax rounded after normalising), the
+    tolerance the card holds the kernel to against the flat version."""
+    x = _attention_data(seed, n=n, m=m)
+    args = _pos_args(x)
+    tiled = ra.reference_relation_attention_pos_tiled(*args).numpy()
+    flat = ra.reference_relation_attention_pos(*args).numpy()
+    np.testing.assert_allclose(tiled, flat, rtol=0, atol=ATOL_POS)
