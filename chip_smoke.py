@@ -39,9 +39,25 @@ Phases, each printing its own lines:
   7. position-bias paths: ``RelationAttention(pos_emb=...)`` (mode "input")
      against the same module with ``pos_rois`` (mode "compute"), and
      ``fused_position_bias`` against that module's log bias, at the stage-0
-     shape.
-The last two lines are the kernel table and the device record as JSON.
-Any failed check raises, and the script exits non-zero.
+     shape;
+  8. RDN kernels: mode "compute" with uk = 0 (RDN's attention has no u bias)
+     at RDN's three shapes, (300, 2775), (555, 2775) and (300, 555), at B=1
+     and B=4, against both plain versions (as in phase 3), every lane of B=4
+     equal to its B=1 call; the stem pool at RDN's launch (4 frames); times,
+     bounds and shares;
+  9. methods: RDN (2 base stages and the advanced stage), FGFA and DFF (key
+     interval 10), each R-101 in bf16 at 608x1024 with seeded random
+     weights, built for 4 lanes, serve 8 synthetic videos of 12-40 frames
+     through ``compute_on_dataset_lockstep``; every frame must be emitted
+     exactly once with finite boxes, each step must launch exactly RDN's 1
+     stem pool and 4 "compute" kernels (FGFA and DFF: no kernel), and the
+     first 15 steps re-run from fresh carries must be bit-identical; prints
+     ms/step, frames/s and peak memory;
+  10. base: the single-frame detector's ``forward_test`` on 4 packed frames
+     launches the stem pool once a call and gives finite detections.
+Each phase prints its seconds. The last two lines are the kernel table and
+the device record as JSON. Any failed check raises, and the script exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -78,10 +94,26 @@ TIMING_INNER = 10  # back-to-back calls per timed turn
 # 1.98 GHz boost clock
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 SFU_OPS = 132 * 16 * 1.98e9
-# kernel launches per detect step on the model path (both lane counts)
-PER_STEP = {"stem_pool_packed": 1, "flash_relation_attention": 2,
-            "flash_relation_attention_pos": 3, "flash_relation_attention_bias": 0,
-            "fused_position_bias": 0}
+# lockstep lanes and videos of the methods phase (the JAX package's
+# tools/bench_methods.py runs 4 lanes)
+METHOD_LANES, METHOD_VIDEOS = 4, 8
+DFF_KEY_INTERVAL = 10
+# RDN's attention shapes: (N, M) of base stages 0-1, the advanced stage and
+# the final stage (37 window frames of 75 refs, 15 of them distilled)
+RDN_SHAPES = (("base stages", 300, 2775), ("advanced stage", 555, 2775),
+              ("final stage", 300, 555))
+# kernel launches per engine step on each path (any lane count); every
+# kernel is listed, so that its 0 is measured too
+_NO_KERNEL = {"stem_pool_packed": 0, "flash_relation_attention": 0,
+              "flash_relation_attention_pos": 0, "flash_relation_attention_bias": 0,
+              "fused_position_bias": 0}
+PER_STEP = {
+    "mega": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention=2,
+                 flash_relation_attention_pos=3),
+    "rdn": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention_pos=4),
+    "fgfa": _NO_KERNEL,
+    "dff": _NO_KERNEL,
+}
 
 
 def _fail(msg: str):
@@ -458,6 +490,71 @@ def phase_kernels():
     return rows
 
 
+def phase_rdn_kernels():
+    """The RDN path's kernels at its shapes: the stem pool over the 4 lanes'
+    frames, and mode "compute" with uk = 0 at RDN's three attention shapes,
+    at B=1 and B=4. Returns (stem pool entry, list of "compute" entries)."""
+    import torch
+    from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
+    from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    b = METHOD_LANES
+    y = (torch.randn(b, 152, 256, 256, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    scale = torch.rand(256, generator=gen, device=dev) + 0.5
+    shift = torch.randn(256, generator=gen, device=dev)
+    got = sp.stem_pool_packed(y, scale, shift, 64)
+    exact = torch.equal(got, sp.stem_pool_packed_reference(y, scale, shift, 64))
+    ms, plain_ms = _time_pair(lambda: sp.stem_pool_packed_reference(y, scale, shift, 64),
+                              lambda: sp.stem_pool_packed(y, scale, shift, 64))
+    stem = dict(shape=list(y.shape), ms=ms, plain_ms=plain_ms,
+                **_bound(_nbytes(y, got), f32_ops=4 * y.numel()))
+    print(f"[rdn kernels] stem_pool bf16 ({b},152,256,256)->({b},152,256,64): exact "
+          f"{exact}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{stem['bound_ms']:.4f} ms ({stem['bound_by']})")
+    if not exact:
+        _fail("stem_pool is not bit-exact at RDN's shape")
+    del y, got
+
+    entries = []
+    for label, n, m in RDN_SHAPES:
+        for lanes in (1, b):
+            x = _attention_inputs(gen, lanes, n, m, dev)
+            x["uk"] = torch.zeros_like(x["uk"])  # RDN: no u bias
+            kern, plain, tol = _attention_fns(ra, "compute", x)
+            got = kern()
+            err = (got - plain()).abs().max().item()
+            if not torch.isfinite(got).all():
+                _fail(f"compute ({label}) B={lanes}: non-finite kernel output")
+            err_t, mean_t, bound_t = _check_tiled(ra, x, got, f"compute ({label}) B={lanes}")
+            ms, plain_ms = _time_pair(plain, kern, repeats=TIMING_REPEATS if lanes == 1 else 5)
+            bound = _attention_bound("compute", x)
+            same = None
+            if lanes > 1:
+                def one(t, i):
+                    return t[i:i + 1].contiguous()
+                same = all(torch.equal(got[i:i + 1], ra.flash_relation_attention_pos(
+                    one(x["q"], i), one(x["k"], i), one(x["v"], i), one(x["uk"], i),
+                    one(x["rois"], i), one(x["refs"], i), x["wk"], x["wb"],
+                    one(x["valid"], i))) for i in range(lanes))
+            print(f"[rdn kernels] compute ({label}) B={lanes} N={n} M={m}, uk = 0: "
+                  f"max_abs_err {err:.3e} (atol {tol}), tiled {err_t:.3e} (atol "
+                  f"{bound_t:.3e}), mean {mean_t:.2e} (atol {MEAN_POS_TILED}); kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']}), share {bound['bound_ms'] / ms:.3f}"
+                  + ("" if same is None else f"; every lane == its B=1 call: {same}"))
+            if not err <= tol:
+                _fail(f"compute ({label}) B={lanes}: max_abs_err {err} above atol {tol}")
+            if same is False:
+                _fail(f"compute ({label}): a {lanes}-lane call differs from its 1-lane calls")
+            entries.append(dict(stage=label, B=lanes, N=n, M=m, max_abs_err=err,
+                                tiled_err=err_t, tiled_mean_err=mean_t, ms=ms,
+                                plain_ms=plain_ms, **bound))
+            del x, got, kern, plain
+    return stem, entries
+
+
 def phase_stream():
     import torch
     from mega_pytorch_tpu_torch.engine.inference import run_video, synthetic_video
@@ -580,44 +677,53 @@ class _SyntheticVideos:
         return {"height": self.pool.shape[1], "width": self.pool.shape[2]}
 
 
-def run_lanes(model, ds, lanes, dev):
-    """Serve ``ds`` through ``compute_on_dataset_lockstep`` with ``lanes``
-    lanes and check the run; returns (per-step ms, emissions per step,
-    launches, launches per step as measured, run seconds). Device-agnostic,
-    so it also runs on the CPU."""
-    import torch
-    from mega_pytorch_tpu_torch.engine import batched_inference as bi
+def _kernels():
+    from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
     from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+
+    return (sp.stem_pool_packed, ra.flash_relation_attention,
+            ra.flash_relation_attention_pos, ra.flash_relation_attention_bias,
+            pb.fused_position_bias)
+
+
+def run_lanes(model, ds, lanes, dev):
+    """Serve ``ds`` through ``compute_on_dataset_lockstep`` with ``lanes``
+    lanes and check the run: the launches of every kernel on every step
+    against ``PER_STEP[model.v.method]``, every frame emitted exactly once
+    with finite boxes, and the first 15 steps re-run from the engine's first
+    carries bit for bit. Returns (per-step ms, emissions per step, launches,
+    launches per step as measured, run seconds, the kind of each step).
+    Device-agnostic, so it also runs on the CPU."""
+    import torch
+    from mega_pytorch_tpu_torch.engine import batched_inference as bi
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
-
-    # every kernel, those no model path launches too, so that their 0 per
-    # step is measured as well
-    kernels = (sp.stem_pool_packed, ra.flash_relation_attention,
-               ra.flash_relation_attention_pos, ra.flash_relation_attention_bias,
-               pb.fused_position_bias)
-    per_step = {k.__name__: PER_STEP[k.__name__] for k in kernels}
+    kernels = _kernels()
+    method = model.v.method
+    per_step = dict(PER_STEP[method])
     if dev.type != "cuda":  # plain versions: no launches
         per_step = dict.fromkeys(per_step, 0)
     slots = model.c.detections_per_img
-    record = dict(ms=[], dets=[], inputs=[], emitted=[], bad_counts=[],
+    record = dict(ms=[], kinds=[], emitted=[], replay=[], bad_counts=[], first=[],
                   finite=torch.ones((), dtype=torch.bool, device=dev))
-    make_step = bi.make_lockstep_step
+    factories = {name: getattr(bi, name) for name in (
+        "make_lockstep_step", "make_lockstep_step_windowed", "make_lockstep_steps_dff")}
 
-    def recording_make_step(m):
-        step = make_step(m)
-
+    def recording(kind, step):
         def run(carries, *inputs):
+            if not record["first"]:
+                record["first"].append(carries)  # the engine's first carries
             before = {k.__name__: k.launches for k in kernels}
             t = time.perf_counter()
             carries, dets = step(carries, *inputs)
             sync()
             record["ms"].append((time.perf_counter() - t) * 1e3)
+            record["kinds"].append(kind)
+            record["emitted"].append(0)  # counted by the engine's _extract
             delta = {k.__name__: k.launches - before[k.__name__] for k in kernels}
             if delta != per_step:
                 record["bad_counts"].append((len(record["ms"]) - 1, delta))
@@ -625,53 +731,88 @@ def run_lanes(model, ds, lanes, dev):
                 _fail(f"lockstep detections have shape {tuple(dets.boxes.shape)}")
             record["finite"] = record["finite"] & torch.isfinite(dets.boxes).all() \
                 & torch.isfinite(dets.scores).all()
-            record["emitted"].append(int(inputs[-1].sum()))
-            if len(record["dets"]) < 15:
-                record["inputs"].append([a.clone() for a in inputs])
-                record["dets"].append([d.clone() for d in dets])
+            if len(record["replay"]) < 15:
+                record["replay"].append((step, [a.clone() for a in inputs],
+                                         [d.clone() for d in dets]))
             return carries, dets
         return run
 
+    def counting_extract(*args):
+        record["emitted"][-1] += 1
+        return extract(*args)
+
+    extract = bi._extract
+    patched = {
+        "make_lockstep_step": lambda m: recording(
+            "step", factories["make_lockstep_step"](m)),
+        "make_lockstep_step_windowed": lambda m: recording(
+            "step", factories["make_lockstep_step_windowed"](m)),
+        "make_lockstep_steps_dff": lambda m: tuple(
+            recording(kind, fn) for kind, fn in zip(
+                ("key", "non-key"), factories["make_lockstep_steps_dff"](m))),
+    }
     for k in kernels:
         k.launches = 0
-    bi.make_lockstep_step = recording_make_step
+    for name, fn in patched.items():
+        setattr(bi, name, fn)
+    bi._extract = counting_extract
     try:
         t0 = time.perf_counter()
         results = bi.compute_on_dataset_lockstep(
             model, ds, range(len(ds.image_set_index)), _Preprocessor(), lanes=lanes)
         wall = time.perf_counter() - t0
     finally:
-        bi.make_lockstep_step = make_step
+        for name, fn in factories.items():
+            setattr(bi, name, fn)
+        bi._extract = extract
     launches = {k.__name__: k.launches for k in kernels}
     steps = len(record["ms"])
     n_frames = len(ds.image_set_index)
-    print(f"[lanes] {steps} steps of {lanes} lanes; launches {launches}; per step "
-          f"{per_step} expected, steps that differ: {record['bad_counts'][:3]}")
+    print(f"[lanes {method}] {steps} steps of {lanes} lanes; launches {launches}; per "
+          f"step {per_step} expected, steps that differ: {record['bad_counts'][:3]}")
     if record["bad_counts"] or steps == 0:
-        _fail(f"lockstep kernel launch counts per step differ from {per_step}")
+        _fail(f"{method}: lockstep kernel launch counts per step differ from {per_step}")
     once = bool((ds.info_calls == 1).all()) and sorted(results) == list(range(n_frames))
-    print(f"[lanes] frames emitted exactly once: {once} ({len(results)} of "
+    print(f"[lanes {method}] frames emitted exactly once: {once} ({len(results)} of "
           f"{n_frames}; {sum(record['emitted'])} emissions)")
     if not once or sum(record["emitted"]) != n_frames:
-        _fail("not every frame was emitted exactly once")
+        _fail(f"{method}: not every frame was emitted exactly once")
     if not bool(record["finite"]):
-        _fail("non-finite lockstep detections")
+        _fail(f"{method}: non-finite lockstep detections")
     for r in results.values():
         if len(r["boxes"]) > slots or not np.isfinite(r["boxes"]).all():
             _fail(f"an extracted prediction has more than {slots} or non-finite boxes")
 
-    # the first 15 steps again, from fresh carries, bit for bit
-    step = make_step(model)
-    carries = model.zero_carry(lanes, dev)
-    for i, (inputs, want) in enumerate(zip(record["inputs"], record["dets"])):
+    # the first 15 steps again, from the engine's first carries, bit for bit
+    carries = record["first"][0]
+    for i, (step, inputs, want) in enumerate(record["replay"]):
         carries, dets = step(carries, *inputs)
         for name, a, b in zip(dets._fields, dets, want):
             if not torch.equal(a, b):
-                _fail(f"lockstep re-run step {i}: {name} differs")
-    print(f"[lanes] determinism: {len(record['dets'])} steps re-run from fresh "
-          f"carries: detections bit-identical ({len(record['dets']) * lanes * slots} "
-          f"slots)")
-    return record["ms"], record["emitted"], launches, per_step, wall
+                _fail(f"{method}: lockstep re-run step {i}: {name} differs")
+    print(f"[lanes {method}] determinism: {len(record['replay'])} steps re-run from "
+          f"fresh carries: detections bit-identical "
+          f"({len(record['replay']) * lanes * slots} slots)")
+    return record["ms"], record["emitted"], launches, per_step, wall, record["kinds"]
+
+
+def _lane_stats(step_ms, emitted, lanes, n_frames, wall, smi, tag):
+    """Print and return the steady-state ms/step (steps 5..), frames/s with
+    every lane emitting, and whole-run frames/s."""
+    steady = step_ms[5:]
+    ms = statistics.median(steady)
+    full = [t for t, e in zip(step_ms[5:], emitted[5:]) if e == lanes]
+    full_ms = statistics.median(full) if full else float("nan")
+    print(f"[{tag}] steady state (steps 5..{len(step_ms) - 1}, {lanes} lanes, "
+          f"per-step sync): median {ms:.2f} ms/step = {lanes * 1e3 / ms:.2f} "
+          f"lane-steps/s; {len(full)} steps with all {lanes} lanes emitting, median "
+          f"{full_ms:.2f} ms/step = {lanes * 1e3 / full_ms:.2f} frames/s; first step "
+          f"{step_ms[0]:.1f} ms; {smi}")
+    print(f"[{tag}] whole run: {n_frames} frames emitted in {wall:.2f} s = "
+          f"{n_frames / wall:.2f} frames/s (warm-up steps and idle tail included); "
+          f"{smi}")
+    return dict(ms_per_step=ms, frames_per_s_all_emitting=lanes * 1e3 / full_ms,
+                frames_per_s_whole_run=n_frames / wall)
 
 
 def phase_lanes(smi):
@@ -689,23 +830,92 @@ def phase_lanes(smi):
           f"{model.lanes} lanes in {time.perf_counter() - t0:.1f} s; {NUM_VIDEOS} "
           f"videos of {lengths.min()}-{lengths.max()} frames, {lengths.sum()} frames")
     torch.cuda.reset_peak_memory_stats()
-    step_ms, emitted, launches, per_step, wall = run_lanes(model, ds, model.lanes,
-                                                           torch.device("cuda"))
+    step_ms, emitted, launches, per_step, wall, _ = run_lanes(model, ds, model.lanes,
+                                                              torch.device("cuda"))
     peak = torch.cuda.max_memory_allocated() / 2**20
-    steady = step_ms[5:]
-    ms = statistics.median(steady)
-    full = [t for t, e in zip(step_ms[5:], emitted[5:]) if e == LANES]
-    n_frames = len(ds.image_set_index)
-    print(f"[lanes] steady state (steps 5..{len(step_ms) - 1}, {LANES} lanes, "
-          f"per-step sync): median {ms:.2f} ms/step = {LANES * 1e3 / ms:.2f} "
-          f"lane-steps/s; {len(full)} steps with all {LANES} lanes emitting, median "
-          f"{statistics.median(full) if full else float('nan'):.2f} ms/step = "
-          f"{LANES * 1e3 / statistics.median(full) if full else float('nan'):.2f} "
-          f"frames/s; first step {step_ms[0]:.1f} ms; {smi}")
-    print(f"[lanes] whole run: {n_frames} frames emitted in {wall:.2f} s = "
-          f"{n_frames / wall:.2f} frames/s (warm-up steps and idle tail "
-          f"included); peak memory {peak:.0f} MiB; {smi}")
+    _lane_stats(step_ms, emitted, LANES, len(ds.image_set_index), wall, smi, "lanes")
+    print(f"[lanes] peak memory {peak:.0f} MiB; {smi}")
     return launches, per_step
+
+
+def phase_methods(smi):
+    """RDN, FGFA and DFF through the lockstep engine with 4 lanes; returns
+    {method: (launches, launches per step)}."""
+    import torch
+    from mega_pytorch_tpu_torch.models.detectors import build_method_flagship
+
+    out = {}
+    for method in ("rdn", "fgfa", "dff"):
+        t0 = time.perf_counter()
+        model = build_method_flagship(method, *CANVAS, device="cuda", lanes=METHOD_LANES,
+                                      generator=torch.Generator("cuda").manual_seed(0))
+        rs = np.random.RandomState(0)
+        lengths = rs.randint(12, 41, METHOD_VIDEOS)
+        ds = _SyntheticVideos(lengths, rs, CANVAS, global_size=0)
+        if method == "dff":
+            ds.key_interval = DFF_KEY_INTERVAL
+        torch.cuda.synchronize()
+        print(f"[methods] built {method} R-101 bf16 {CANVAS[0]}x{CANVAS[1]} for "
+              f"{model.lanes} lanes in {time.perf_counter() - t0:.1f} s; "
+              f"{METHOD_VIDEOS} videos of {lengths.min()}-{lengths.max()} frames, "
+              f"{lengths.sum()} frames")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, emitted, launches, per_step, wall, kinds = run_lanes(
+            model, ds, METHOD_LANES, torch.device("cuda"))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        _lane_stats(step_ms, emitted, METHOD_LANES, len(ds.image_set_index), wall, smi,
+                    f"methods {method}")
+        if method == "dff":
+            for kind in ("key", "non-key"):
+                ms = [t for t, k in zip(step_ms[5:], kinds[5:]) if k == kind]
+                print(f"[methods dff] {kind} steps: {len(ms)}, median "
+                      f"{statistics.median(ms):.2f} ms/step; {smi}")
+        print(f"[methods {method}] peak memory {peak:.0f} MiB; {smi}")
+        out[method] = (launches, per_step)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_base(smi):
+    """The single-frame detector on 4 s2d(4)-packed frames: one stem pool
+    launch a call, no other kernel, finite detections. Returns the launches."""
+    import torch
+    from mega_pytorch_tpu_torch.data.transforms import normalize_u8_frames, s2d_pack_frames
+    from mega_pytorch_tpu_torch.models.detectors import build_method_flagship
+
+    dev = torch.device("cuda")
+    model = build_method_flagship("base", *CANVAS, device=dev, lanes=METHOD_LANES,
+                                  generator=torch.Generator("cuda").manual_seed(0))
+    rs = np.random.RandomState(1)
+    frames = s2d_pack_frames(
+        rs.randint(0, 256, (METHOD_LANES, *CANVAS, 3), dtype=np.uint8), 4)
+    sizes = torch.tensor(CANVAS, dtype=torch.float32, device=dev).expand(METHOD_LANES, 2)
+    kernels = _kernels()
+    calls, ms = 4, []
+    with torch.inference_mode():
+        images = normalize_u8_frames(torch.from_numpy(frames).to(dev), sizes)
+        for k in kernels:
+            k.launches = 0
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            dets = model.forward_test(images, sizes)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.__name__: k.launches for k in kernels}
+    expect = dict(_NO_KERNEL, stem_pool_packed=calls)
+    finite = bool(torch.isfinite(dets.boxes).all() and torch.isfinite(dets.scores).all())
+    print(f"[base] forward_test on {METHOD_LANES} packed frames x {calls} calls: "
+          f"launches {launches} (expected {expect}); detections "
+          f"{tuple(dets.boxes.shape)} finite {finite}, {int(dets.valid.sum())} valid; "
+          f"median {statistics.median(ms[1:]):.2f} ms/call; {smi}")
+    if launches != expect:
+        _fail(f"base: launch counts {launches} != {expect}")
+    if not finite or tuple(dets.boxes.shape) != (METHOD_LANES, 300, 4):
+        _fail("base: detections not finite or of the wrong shape")
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_position_bias_paths():
@@ -763,18 +973,30 @@ def main():
     if not (ROOT / "mega_pytorch_tpu_torch").is_dir():
         _fail("the mega_pytorch_tpu_torch package is not beside this script")
     sys.path.insert(0, str(ROOT))
-    name, smi = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    model, frames, gframes, outs, launches = phase_stream()
-    phase_determinism(model, frames, gframes, outs)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[time] phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    name, smi = timed("device", phase_device)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    rdn_stem, rdn_pos = timed("rdn kernels", phase_rdn_kernels)
+    model, frames, gframes, outs, launches = timed("stream", phase_stream)
+    timed("determinism", phase_determinism, model, frames, gframes, outs)
     del model, frames, gframes, outs
 
     import torch
 
     torch.cuda.empty_cache()
-    lane_launches, per_step = phase_lanes(smi)
-    path_launches = phase_position_bias_paths()
+    lane_launches, per_step = timed("lanes", phase_lanes, smi)
+    methods = timed("methods", phase_methods, smi)
+    base_launches = timed("base", phase_base, smi)
+    path_launches = timed("position-bias paths", phase_position_bias_paths)
 
     source = {
         "stem_pool_packed": ("cuda", "mega_pytorch_tpu_torch/csrc/stem_pool.cu",
@@ -792,17 +1014,28 @@ def main():
             "cuda", "mega_pytorch_tpu_torch/csrc/position_bias.cu",
             "mega_pytorch_tpu/ops/pallas/position_bias.py:112"),
     }
-    # launches: the model path's kernels count in the lanes run (phase 6);
-    # the two kernels no model path reaches count in their own path (phase 7);
-    # launches_per_step is what every step of the lanes run launched
-    counts = {**lane_launches, **path_launches}
-    print(f"[result] launches per kernel: stream (1 lane) {launches}; lanes "
-          f"({LANES}) {lane_launches}; position-bias paths {path_launches}")
+    # launches: each path's run counts from 0 and is read just after it: the
+    # MEGA lanes run (phase 6), the methods (phase 9), the base detector
+    # (phase 10), and the position-bias paths (phase 7) for the two kernels
+    # no model path reaches; launches_per_step is what every step of each
+    # lockstep run launched
+    by_path = {"mega": lane_launches, **{m: c for m, (c, _) in methods.items()},
+               "base": base_launches, "position-bias paths": path_launches}
+    per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()}}
+    print(f"[result] launches per kernel: stream (1 lane) {launches}; by path {by_path}")
+    print(f"[result] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    rows["stem_pool_packed"]["rdn_shape"] = rdn_stem
+    pos = rows["flash_relation_attention_pos"]
+    pos["rdn_shapes"] = rdn_pos
+    pos["max_abs_err"] = max([pos["max_abs_err"]] + [e["max_abs_err"] for e in rdn_pos])
     table = []
     for kname, (route, src, replaces) in source.items():
-        table.append(dict(name=kname, route=route, source=src, replaces=replaces,
-                          launches=counts[kname], launches_per_step=per_step[kname],
-                          **rows[kname]))
+        table.append(dict(
+            name=kname, route=route, source=src, replaces=replaces,
+            launches=sum(c.get(kname, 0) for c in by_path.values()),
+            launches_by_path={p: c[kname] for p, c in by_path.items() if kname in c},
+            launches_per_step={p: c[kname] for p, c in per_step_by_path.items()},
+            **rows[kname]))
     print(f"[result] {smi}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

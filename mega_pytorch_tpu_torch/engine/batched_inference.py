@@ -1,27 +1,35 @@
-"""Lockstep multi-lane MEGA streaming (counterpart of
-``mega_pytorch_tpu/engine/batched_inference.py``, MEGA branch).
+"""Lockstep multi-lane streaming for every streaming method (counterpart
+of ``mega_pytorch_tpu/engine/batched_inference.py``).
 
 L independent videos advance in lockstep through ONE per-step function over
-stacked lane state — the configuration the JAX package's bench measures
-(12 lanes) and its offline evaluation runs. Every step, each lane (a)
-precomputes its incoming local frame and either resets its carry from it
-(video start) or pushes it into the window; (b) optionally applies one
-global-cache update; (c) detects at the key slot, keeping the long-range
-memory pushes only on an emitted frame. Reset, global update and emit are
-data: both alternatives are computed and ``torch.where`` picks one per lane,
-so lanes never leave lockstep and the step reads no lane mask on the host.
-A video of n frames takes n + (window - 1 - key) steps; the warm-up steps'
-detections are discarded, and the video's initial global updates are spread
-one per step over the warm-up.
+stacked lane state — the configuration the JAX package's benches measure
+(12 lanes for MEGA, 4 for the other methods) and its offline evaluation
+runs. Every step, each lane (a) precomputes its incoming local frame and
+either resets its carry from it (video start) or pushes it into the window;
+(b) for MEGA, optionally applies one global-cache update; (c) detects at the
+key slot, MEGA keeping the long-range memory pushes only on an emitted
+frame. Reset, global update and emit are data: both alternatives are
+computed and ``torch.where`` picks one per lane, so lanes never leave
+lockstep and the step reads no lane mask on the host. A video of n frames
+takes n + (window - 1 - key) steps; the warm-up steps' detections are
+discarded, and MEGA's initial global updates are spread one per step over
+the warm-up.
+
+RDN and FGFA run MEGA's window protocol without the global cache or the
+memory (``make_lockstep_step_windowed``). DFF runs the backbone only on key
+frames, so its lanes are phase-aligned instead: each video starts on a
+multiple of the key interval in its lane, every lane meets key frames on
+the same engine step, and the engine alternates a key step (backbone, flow,
+heads) and a non-key step (flow, heads) by a host counter.
 
 Host IO runs ahead of the device: a producer thread assembles each step's
 lane batch (decode, resize and canvas through the preprocessor, s2d(4)
-packing) with a thread pool into a bounded queue, in pinned memory that the
-step copies to the card with ``non_blocking=True``. The dataset and the
-preprocessor are duck-typed as in the JAX engine: ``pattern``,
-``frame_seg_len``, ``load_frame``, ``global_ref_ids``, ``get_img_info``,
-``image_set_index`` and ``_prep_u8``. Methods rdn, fgfa and dff are not
-ported (ROADMAP.md, Queue 1).
+packing for MEGA and RDN) with a thread pool into a bounded queue, in pinned
+memory that the step copies to the card with ``non_blocking=True``. The
+dataset and the preprocessor are duck-typed as in the JAX engine:
+``pattern``, ``frame_seg_len``, ``load_frame``, ``global_ref_ids`` (MEGA),
+``key_interval`` (DFF, default 10), ``get_img_info``, ``image_set_index``
+and ``_prep_u8``.
 """
 
 from __future__ import annotations
@@ -81,6 +89,54 @@ def make_lockstep_step(model) -> Callable:
     return step
 
 
+def make_lockstep_step_windowed(model) -> Callable:
+    """RDN and FGFA: the window protocol with no global cache, and a
+    detect_key without carry side effects, so no emit select.
+
+    step(carries, frames, sizes, resets) → (carries, Detections)
+
+    frames (L, H, W, C) uint8 (C = 48 for s2d(4)-packed canvases), sizes
+    (L, 2), resets (L,) bool. ``carries`` None: every lane resets (the first
+    step, where every lane starts a video)."""
+
+    @torch.inference_mode()
+    def step(carries, frames, sizes, resets):
+        sizes = sizes.float()
+        entry = model.precompute(normalize_u8_frames(frames, sizes), sizes)
+        carry = model.init_carry(entry, sizes)
+        if carries is not None:
+            carry = _select(resets, carry, model.push_carry(carries, entry, sizes))
+        return carry, model.detect_key(carry)
+
+    return step
+
+
+def make_lockstep_steps_dff(model) -> tuple[Callable, Callable]:
+    """DFF's phase-aligned pair of steps, (key_step, nonkey_step):
+
+    step(carries, frames, sizes) → (carries, Detections)
+
+    The key step makes every lane's key from its frame and detects on it;
+    the non-key step warps the lanes' keys to their frames. Plain RGB frames
+    (L, H, W, 3) uint8, sizes (L, 2). The key step ignores ``carries`` (None
+    on the first step)."""
+
+    @torch.inference_mode()
+    def key_step(carries, frames, sizes):
+        sizes = sizes.float()
+        images = normalize_u8_frames(frames, sizes)
+        carry = model.make_key(images, sizes)
+        return carry, model.detect_key(carry, images, sizes)
+
+    @torch.inference_mode()
+    def nonkey_step(carries, frames, sizes):
+        sizes = sizes.float()
+        images = normalize_u8_frames(frames, sizes)
+        return carries, model.detect_non_key(carries, images, sizes)
+
+    return key_step, nonkey_step
+
+
 class _LaneFeed:
     """Per-engine-step host items for one lane over its queue of videos.
 
@@ -88,11 +144,12 @@ class _LaneFeed:
     reset (bool), gmask (bool), emit (dataset idx or None), orig_hw."""
 
     def __init__(self, dataset, preprocessor, videos: list[list[int]],
-                 warmup: int, pack: int = 0):
+                 warmup: int, use_global: bool = True, pack: int = 0):
         self.dataset = dataset
         self.prep = preprocessor
         self.videos = videos
         self.warmup = warmup
+        self.use_global = use_global  # MEGA's global cache; RDN, FGFA have none
         self.pack = pack  # host-side s2d factor (0 = unpacked, or 4)
 
     def _frame(self, pattern, fid):
@@ -101,13 +158,16 @@ class _LaneFeed:
             return s2d_pack_frames(p.image, self.pack), p.size
         return p.image, p.size
 
+    def _globals(self, idx) -> list:
+        return list(self.dataset.global_ref_ids(idx)) if self.use_global else []
+
     def __iter__(self) -> Iterator[dict]:
         last = None
         for idxs in self.videos:
             n = len(idxs)
             pattern = self.dataset.pattern[idxs[0]]
             seg_len = self.dataset.frame_seg_len[idxs[0]]
-            init_globals = list(self.dataset.global_ref_ids(idxs[0]))
+            init_globals = self._globals(idxs[0])
             if len(init_globals) > self.warmup + 1:
                 raise ValueError("global_size must fit in the warm-up window "
                                  "for lockstep evaluation")
@@ -117,7 +177,7 @@ class _LaneFeed:
                 if s < len(init_globals):
                     gid = init_globals[s]
                 elif j >= 1:
-                    gids = list(self.dataset.global_ref_ids(idxs[j]))
+                    gids = self._globals(idxs[j])
                     gid = gids[0] if gids else None
                 else:
                     gid = None
@@ -141,6 +201,47 @@ class _LaneFeed:
                        orig_hw=None)
 
 
+class _DFFLaneFeed:
+    """Per-step host items for one DFF lane: each video starts on a multiple
+    of the key interval in its lane (idle items pad the gap), so every lane
+    meets key frames on the same engine step. Idle items repeat the previous
+    frame and emit nothing (a key made from a stale frame is harmless: the
+    next video's first frame is itself a key).
+
+    Yields dicts: frame (H, W, 3) canvas, size (2,), emit (dataset idx or
+    None), orig_hw."""
+
+    def __init__(self, dataset, preprocessor, videos: list[list[int]],
+                 key_interval: int):
+        self.dataset = dataset
+        self.prep = preprocessor
+        self.videos = videos
+        self.key_interval = key_interval
+
+    def __iter__(self) -> Iterator[dict]:
+        steps = 0
+        last = None
+
+        def idle():
+            return dict(frame=last["frame"], size=last["size"], emit=None, orig_hw=None)
+
+        for idxs in self.videos:
+            pattern = self.dataset.pattern[idxs[0]]
+            if last is not None:
+                for _ in range((-steps) % self.key_interval):
+                    steps += 1
+                    yield idle()
+            for j, idx in enumerate(idxs):
+                p = self.prep._prep_u8(self.dataset.load_frame(pattern, j), flip=False)
+                info = self.dataset.get_img_info(idx)
+                last = dict(frame=p.image, size=p.size, emit=idx,
+                            orig_hw=(info["height"], info["width"]))
+                steps += 1
+                yield last
+        while last is not None:
+            yield idle()
+
+
 def _partition(videos: list[list[int]], lanes: int, warmup: int):
     """Greedy longest-first balance of per-lane total steps."""
     order = sorted(videos, key=len, reverse=True)
@@ -150,6 +251,20 @@ def _partition(videos: list[list[int]], lanes: int, warmup: int):
         i = int(np.argmin(loads))
         bins[i].append(v)
         loads[i] += len(v) + warmup
+    return [b for b in bins if b], max(loads) if loads else 0
+
+
+def _partition_dff(videos: list[list[int]], lanes: int, key_interval: int):
+    """Greedy longest-first balance of per-lane steps, the alignment padding
+    included."""
+    order = sorted(videos, key=len, reverse=True)
+    bins: list[list[list[int]]] = [[] for _ in range(lanes)]
+    loads = [0] * lanes
+    for v in order:
+        i = int(np.argmin(loads))
+        pad = (-loads[i]) % key_interval if bins[i] else 0
+        bins[i].append(v)
+        loads[i] += pad + len(v)
     return [b for b in bins if b], max(loads) if loads else 0
 
 
@@ -173,17 +288,28 @@ def _to_host(dets: Detections) -> Detections:
                       packed[..., 5].astype(np.int32), packed[..., 6] > 0.5)
 
 
+# host item key → batch key, for the items each method's step reads
+_FEED_KEYS = {
+    "mega": ("frame", "size", "gframe", "gsize", "reset", "gmask"),
+    "rdn": ("frame", "size", "reset"),
+    "fgfa": ("frame", "size", "reset"),
+    "dff": ("frame", "size"),
+}
+
+
 def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
                                 lanes: int = 4, logger=None, log_period: int = 50,
                                 prefetch_depth: int = 8) -> dict:
     """Lockstep multi-lane streaming over whole videos → {idx: prediction}
-    in original image coordinates. MEGA only."""
-    v = model.v
-    if v.method != "mega":
-        raise NotImplementedError(
-            f"lockstep {v.method!r} is not ported yet (ROADMAP.md, Queue 1)")
+    in original image coordinates. Dispatches on ``model.v.method``: mega
+    (window, memory and global cache), rdn and fgfa (window only), dff
+    (phase-aligned key and non-key steps)."""
+    method = model.v.method
+    if method not in _FEED_KEYS:
+        raise NotImplementedError(f"lockstep {method!r} is not ported")
     dev = next(model.parameters()).device
-    warmup = v.all_frame_interval - v.key_frame_location - 1
+    warmup = model.v.all_frame_interval - model.v.key_frame_location - 1
+    key_int = int(getattr(dataset, "key_interval", 10))
     videos = split_videos(dataset, indices)
 
     # lanes must stack: group videos by canvas shape (portrait, landscape)
@@ -193,35 +319,52 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
         p = preprocessor._prep_u8(img, flip=False)
         groups.setdefault(p.image.shape, []).append(vid)
 
-    step = make_lockstep_step(model)
+    if method == "dff":
+        key_step, nonkey_step = make_lockstep_steps_dff(model)
+    else:
+        step = (make_lockstep_step if method == "mega"
+                else make_lockstep_step_windowed)(model)
+    keys = _FEED_KEYS[method]
     results: dict = {}
     t0 = time.time()
     done = 0
     for canvas_shape, group in groups.items():
-        bins, max_steps = _partition(group, lanes, warmup)
-        # host-side s2d(4) packing: the stem runs its exact 3x3 reformulation
-        # and the stem pool kernel; other canvases go unpacked
-        pack = 4 if canvas_shape[0] % 4 == 0 and canvas_shape[1] % 4 == 0 else 0
-        feeds = [iter(_LaneFeed(dataset, preprocessor, b, warmup, pack)) for b in bins]
+        if method == "dff":
+            bins, max_steps = _partition_dff(group, lanes, key_int)
+            feeds = [iter(_DFFLaneFeed(dataset, preprocessor, b, key_int)) for b in bins]
+        else:
+            bins, max_steps = _partition(group, lanes, warmup)
+            # host-side s2d(4) packing for MEGA and RDN: the stem runs its
+            # exact 3x3 reformulation and the stem pool kernel; FGFA's carry
+            # and DFF's flow net read plain frames, other canvases go unpacked
+            pack = 4 if (method in ("mega", "rdn") and canvas_shape[0] % 4 == 0
+                         and canvas_shape[1] % 4 == 0) else 0
+            feeds = [iter(_LaneFeed(dataset, preprocessor, b, warmup,
+                                    method == "mega", pack)) for b in bins]
         batches: queue.Queue = queue.Queue(maxsize=prefetch_depth)
         stop = threading.Event()
         with ThreadPoolExecutor(max_workers=min(16, 2 * len(bins))) as pool:
             producer = threading.Thread(
-                target=_produce, args=(pool, feeds, max_steps, dev, batches, stop),
+                target=_produce, args=(pool, feeds, keys, max_steps, dev, batches, stop),
                 daemon=True)
             producer.start()
             try:
-                carries = model.zero_carry(len(bins), dev)  # every lane resets first
+                # every lane resets (or makes a key) on its first step
+                carries = model.zero_carry(len(bins), dev) if method == "mega" else None
+                s = 0
                 while (batch := batches.get()) is not None:
                     if isinstance(batch, BaseException):
                         raise batch
-                    on_dev = {k: batch[k].to(dev, non_blocking=True) for k in (
-                        "frames", "sizes", "gframes", "gsizes", "resets", "gmasks",
-                        "emit_mask")}
-                    carries, dets = step(carries, on_dev["frames"], on_dev["sizes"],
-                                         on_dev["gframes"], on_dev["gsizes"],
-                                         on_dev["resets"], on_dev["gmasks"],
-                                         on_dev["emit_mask"])
+                    inputs = [batch[k + "s"].to(dev, non_blocking=True) for k in keys]
+                    if method == "dff":
+                        fn = key_step if s % key_int == 0 else nonkey_step
+                        carries, dets = fn(carries, *inputs)
+                    elif method == "mega":
+                        carries, dets = step(carries, *inputs,
+                                             batch["emit_mask"].to(dev, non_blocking=True))
+                    else:
+                        carries, dets = step(carries, *inputs)
+                    s += 1
                     emits = batch["emits"]
                     if all(e is None for e in emits):
                         continue
@@ -234,8 +377,9 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
                                               orig)
                         done += 1
                         if logger and done % log_period == 0:
-                            logger.info(f"lockstep inference {done}/{len(indices)} "
-                                        f"({done / (time.time() - t0):.1f} fps)")
+                            logger.info(f"lockstep {method} inference {done}/"
+                                        f"{len(indices)} ({done / (time.time() - t0):.1f} "
+                                        f"fps)")
             finally:
                 stop.set()
                 while producer.is_alive():  # unblock a producer on a full queue
@@ -247,11 +391,12 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
     return results
 
 
-def _produce(pool, feeds, steps: int, dev, batches: queue.Queue,
+def _produce(pool, feeds, keys, steps: int, dev, batches: queue.Queue,
              stop: threading.Event) -> None:
     """Producer thread: ``steps`` lane batches, then None; an exception is
-    put on the queue for the consumer to raise. Returns early once ``stop``
-    is set (the consumer stopped)."""
+    put on the queue for the consumer to raise. Each batch stacks the lanes'
+    items under ``keys`` (item "frame" as batch "frames", ...). Returns early
+    once ``stop`` is set (the consumer stopped)."""
     pin = dev.type == "cuda"
 
     def host(a):
@@ -263,17 +408,13 @@ def _produce(pool, feeds, steps: int, dev, batches: queue.Queue,
             if stop.is_set():
                 return
             items = list(pool.map(next, feeds))
-            batches.put(dict(
-                frames=host(np.stack([it["frame"] for it in items])),
-                sizes=host(np.stack([it["size"] for it in items])),
-                gframes=host(np.stack([it["gframe"] for it in items])),
-                gsizes=host(np.stack([it["gsize"] for it in items])),
-                resets=host(np.array([it["reset"] for it in items])),
-                gmasks=host(np.array([it["gmask"] for it in items])),
+            batch = {k + "s": host(np.stack([it[k] for it in items])) for k in keys}
+            batch.update(
                 emit_mask=host(np.array([it["emit"] is not None for it in items])),
                 emits=[it["emit"] for it in items],
                 origs=[it["orig_hw"] for it in items],
-            ))
+            )
+            batches.put(batch)
         batches.put(None)
     except Exception as exc:  # handed to the consumer, which raises it
         batches.put(exc)

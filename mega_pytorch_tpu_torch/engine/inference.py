@@ -1,6 +1,6 @@
-"""Streaming MEGA inference (counterpart of ``mega_pytorch_tpu/engine/inference.py``).
+"""Streaming inference (counterpart of ``mega_pytorch_tpu/engine/inference.py``).
 
-``serve_step`` is one lane's step: the one-lane case of the lockstep step
+``serve_step`` is one MEGA lane's step: the one-lane case of the lockstep step
 (``batched_inference.make_lockstep_step``), so a single stream and L lockstep
 lanes run one per-frame code path. Each step
   1. stacks the local and the global uint8 frame and normalizes them;
@@ -11,7 +11,8 @@ lanes run one per-frame code path. Each step
      emitted frame.
 ``run_video`` schedules reset, global updates and emission over one video
 the way the lockstep engine schedules one lane. ``compute_on_dataset`` runs
-whole videos of a dataset through the lockstep engine.
+whole videos of a dataset through the lockstep engine, for MEGA, RDN, FGFA
+and DFF.
 """
 
 from __future__ import annotations
@@ -144,14 +145,16 @@ def compute_on_dataset(model, dataset, indices, preprocessor, method: str,
     """Streaming inference over ``indices`` (whole videos, ascending) →
     {dataset_idx: prediction dict in original image coordinates}.
 
-    MEGA runs through the lockstep engine with ``lanes`` lanes; one lane is
-    the serial protocol (its detections equal the JAX serial engine's, which
-    the JAX package's lockstep-versus-serial tests pin). The serial
-    ``StreamingInferencer`` and the other methods are not ported yet
-    (ROADMAP.md, Queue 1)."""
-    if method != "mega":
+    MEGA, RDN, FGFA and DFF run through the lockstep engine with ``lanes``
+    lanes; one lane is the serial protocol (its detections equal the JAX
+    serial engine's, which the JAX package's lockstep-versus-serial tests
+    pin). The single-frame ``base`` method's engine, the serial
+    ``StreamingInferencer``, is not ported (ROADMAP.md, Queue 1)."""
+    if method not in ("mega", "rdn", "fgfa", "dff"):
         raise NotImplementedError(
             f"streaming {method!r} is not ported yet (ROADMAP.md, Queue 1)")
+    if method != model.v.method:
+        raise ValueError(f"method {method!r} but the model is {model.v.method!r}")
     from .batched_inference import compute_on_dataset_lockstep
 
     return compute_on_dataset_lockstep(model, dataset, indices, preprocessor,

@@ -11,7 +11,7 @@ are free.
 
 Initialisation follows the flax initialisers: ``init_std=None`` is
 lecun-normal (variance 1/fan_in, truncated at two standard deviations),
-otherwise normal(init_std); biases start at zero.
+``init_std=0.0`` zeros, otherwise normal(init_std); biases start at zero.
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ class _Weighted(nn.Module):
         w = self.weight.data
         if self.init_std is None:
             lecun_normal_(w, w[0].numel(), generator)
+        elif self.init_std == 0.0:
+            w.zero_()
         else:
             w.normal_(0.0, self.init_std, generator=generator)
         if self.bias is not None:
@@ -67,6 +69,31 @@ class Conv(_Weighted):
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
                         self.padding, self.dilation)
+
+
+class ConvTranspose(_Weighted):
+    """flax ``nn.ConvTranspose(transpose_kernel=True, padding="VALID")``:
+    the gradient of a convolution, output (in - 1) * stride + kernel. The
+    weight is ``conv_transpose2d``'s (in, out, k, k); its ``w[0].numel()`` is
+    flax's fan-in (out * k * k) for the (k, k, out, in) kernel."""
+
+    def __init__(self, in_ch, out_ch, kernel, stride=1, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(in_ch, out_ch, kernel, kernel, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+        self.stride, self.dtype, self.init_std = stride, dtype, None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                                  self.stride)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.leaky_relu(x, negative_slope=0.1)`` (FlowNetS)."""
+    return F.leaky_relu(x, 0.1)
 
 
 class Dense(_Weighted):

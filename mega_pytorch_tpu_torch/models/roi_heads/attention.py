@@ -1,9 +1,11 @@
-"""Relation attention for MEGA, inference (counterpart of
+"""Relation attention for MEGA and RDN, inference (counterpart of
 ``mega_pytorch_tpu/models/roi_heads/attention.py``, ``RelationAttention``).
 
-logits = (q.k + u.k) / sqrt(d) [+ log position weight], masked over invalid
-refs; values are each ref's feature projected per group by ``Wv_kernel``
-(g, feat, d), mixed back to ``feat`` columns. Every operand has a leading
+logits = (q.k [+ u.k]) / sqrt(d) [+ log position weight], masked over
+invalid refs (MEGA learns the global content bias ``u``, RDN has none:
+``use_u_bias=False``, and the kernels take a zero uk); values are each
+ref's feature projected per group by ``Wv_kernel`` (g, feat, d), mixed back
+to ``feat`` columns. Every operand has a leading
 lane dimension, which the kernels take as their batch (the JAX module runs
 per lane under vmap). On a CUDA tensor every call launches the flash kernel:
 mode "compute" when ``pos_rois`` is given, mode "input" with the log bias of
@@ -57,20 +59,22 @@ class _Wg(nn.Module):
 
 class RelationAttention(nn.Module):
     def __init__(self, feat_dim=1024, embed_dim=64, groups=16, use_position=True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, *, use_u_bias=True):
         super().__init__()
         self.feat_dim, self.embed_dim, self.groups = feat_dim, embed_dim, groups
         self.use_position, self.dtype = use_position, dtype
         d = feat_dim // groups
         self.Wq = Dense(feat_dim, feat_dim, dtype, device=device)
         self.Wk = Dense(feat_dim, feat_dim, dtype, device=device)
-        self.u = nn.Parameter(torch.empty(groups, embed_dim, device=device))
+        self.u = (nn.Parameter(torch.empty(groups, embed_dim, device=device))
+                  if use_u_bias else None)
         self.Wg = _Wg(embed_dim, groups, device) if use_position else None
         self.Wv_kernel = nn.Parameter(torch.empty(groups, feat_dim, d, device=device))
         self.Wv_bias = nn.Parameter(torch.zeros(feat_dim, device=device))
 
     def init_weights(self, generator) -> None:
-        self.u.data.normal_(0.0, 0.01, generator=generator)
+        if self.u is not None:
+            self.u.data.normal_(0.0, 0.01, generator=generator)
         if self.Wg is not None:
             self.Wg.kernel.data.normal_(0.0, 0.01, generator=generator)
             self.Wg.bias.data.zero_()
@@ -78,7 +82,8 @@ class RelationAttention(nn.Module):
         self.Wv_bias.data.zero_()
 
     def cast_weights_(self) -> None:
-        self.u.data = self.u.data.to(self.dtype)
+        if self.u is not None:
+            self.u.data = self.u.data.to(self.dtype)
         self.Wv_kernel.data = self.Wv_kernel.data.to(self.dtype)
 
     def forward(self, roi_feat, ref_feat, ref_valid=None, pos_rois=None,
@@ -92,7 +97,10 @@ class RelationAttention(nn.Module):
         lanes, m = ref_feat.shape[:2]
         q = self.Wq(roi_feat).reshape(lanes, -1, g, d).transpose(1, 2)  # (L, g, N, d)
         k = self.Wk(ref_feat).reshape(lanes, m, g, d).transpose(1, 2)  # (L, g, M, d)
-        uk = torch.einsum("gd,lgmd->lgm", self.u.to(dt).float(), k.float())
+        if self.u is not None:
+            uk = torch.einsum("gd,lgmd->lgm", self.u.to(dt).float(), k.float())
+        else:  # the kernels take uk as a materialised f32 (L, g, M) tensor
+            uk = torch.zeros((lanes, g, m), dtype=torch.float32, device=k.device)
         # per-group values: (L, g, M, d), f32 sums over dt operands
         v = torch.einsum("lmf,gfd->lgmd", ref_feat.to(dt).float(),
                          self.Wv_kernel.to(dt).float())

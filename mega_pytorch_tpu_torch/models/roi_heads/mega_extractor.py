@@ -29,27 +29,61 @@ def cat_refs(a: RefSet, b: RefSet) -> RefSet:
     return RefSet(*(torch.cat([x, y], 1) for x, y in zip(a, b)))
 
 
-class MEGAFeatureExtractor(nn.Module):
-    def __init__(self, depth="R-101", reduce_channel=False, resolution=7,
-                 spatial_scale=1.0 / 16, sampling_ratio=0, mlp_dim=1024,
-                 dilation=2, stride_in_1x1=True, stage=3, base_num=75,
-                 advanced_num=15, embed_dim=64, groups=16, global_enable=True,
-                 global_res_stage=1, dtype=torch.float32, device=None):
+def distill(arr: torch.Tensor, frames: int, base_num: int,
+            advanced_num: int) -> torch.Tensor:
+    """(L, frames * base_num, ...) → the top ``advanced_num`` of each
+    ``base_num`` block (score-ordered slots), (L, frames * advanced_num, ...)."""
+    lanes, _, *rest = arr.shape
+    blocks = arr.reshape(lanes, frames, base_num, *rest)
+    return blocks[:, :, :advanced_num].reshape(lanes, frames * advanced_num, *rest)
+
+
+class Res5Pooler(nn.Module):
+    """What the video heads' extractors share: res5 on the whole C4 map
+    (stride 1, dilated) with the optional 1x1 reduce, and ROIAlign of its
+    output flattened in (h, w, c) order (``flat_dim`` columns)."""
+
+    def __init__(self, depth, reduce_channel, resolution, spatial_scale,
+                 sampling_ratio, dilation, stride_in_1x1, dtype, device):
         super().__init__()
         self.reduce_channel, self.resolution = reduce_channel, resolution
         self.spatial_scale, self.sampling_ratio = spatial_scale, sampling_ratio
-        self.stage, self.base_num, self.advanced_num = stage, base_num, advanced_num
-        self.global_enable, self.global_res_stage = global_enable, global_res_stage
         self.dtype = dtype
         self.head = ResNetRes5Head(depth, 1, dilation, stride_in_1x1, dtype, device)
         in_ch = 2048
         if reduce_channel:
             self.conv = Conv(2048, 256, 1, dtype=dtype, device=device)
             in_ch = 256
-        flat = in_ch * resolution * resolution
+        self.flat_dim = in_ch * resolution * resolution
+
+    def enhance_features(self, c4: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 1024) → (B, H, W, C) NHWC."""
+        x = self.head(c4)
+        if self.reduce_channel:
+            x = nhwc(torch.relu(self.conv(nchw(x))))
+        return x
+
+    def pool_flat(self, feat_map: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
+        """(L, H, W, C) maps, (L, R, 4) rois → (L, R, res*res*C) f32, (h, w, c)
+        order."""
+        pooled = roi_align(feat_map.float(), rois, self.spatial_scale,
+                           self.resolution, self.resolution, self.sampling_ratio)
+        return pooled.flatten(2)
+
+
+class MEGAFeatureExtractor(Res5Pooler):
+    def __init__(self, depth="R-101", reduce_channel=False, resolution=7,
+                 spatial_scale=1.0 / 16, sampling_ratio=0, mlp_dim=1024,
+                 dilation=2, stride_in_1x1=True, stage=3, base_num=75,
+                 advanced_num=15, embed_dim=64, groups=16, global_enable=True,
+                 global_res_stage=1, dtype=torch.float32, device=None):
+        super().__init__(depth, reduce_channel, resolution, spatial_scale,
+                         sampling_ratio, dilation, stride_in_1x1, dtype, device)
+        self.stage, self.base_num, self.advanced_num = stage, base_num, advanced_num
+        self.global_enable, self.global_res_stage = global_enable, global_res_stage
         for i in range(stage):
-            setattr(self, f"l_fcs_{i}", Dense(flat if i == 0 else mlp_dim, mlp_dim,
-                                              dtype, device=device))
+            setattr(self, f"l_fcs_{i}", Dense(self.flat_dim if i == 0 else mlp_dim,
+                                              mlp_dim, dtype, device=device))
             setattr(self, f"l_attn_{i}", RelationAttention(
                 mlp_dim, embed_dim, groups, True, dtype, device))
         if global_enable:
@@ -66,30 +100,11 @@ class MEGAFeatureExtractor(nn.Module):
     def g_attn(self, i: int) -> RelationAttention:
         return getattr(self, f"g_attn_{i}")
 
-    def enhance_features(self, c4: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 1024) → (B, H, W, C) NHWC."""
-        x = self.head(c4)
-        if self.reduce_channel:
-            x = nhwc(torch.relu(self.conv(nchw(x))))
-        return x
-
-    def pool_flat(self, feat_map: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-        """(L, H, W, C) maps, (L, R, 4) rois → (L, R, res*res*C) f32, (h, w, c)
-        order."""
-        pooled = roi_align(feat_map.float(), rois, self.spatial_scale,
-                           self.resolution, self.resolution, self.sampling_ratio)
-        return pooled.flatten(2)
-
     def fc0(self, flat: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.l_fcs(0)(flat).float())
 
     def _distill(self, arr: torch.Tensor, frames: int) -> torch.Tensor:
-        """(L, frames * base_num, ...) → the top advanced_num of each base_num
-        block (score-ordered slots), (L, frames * advanced_num, ...)."""
-        lanes, _, *rest = arr.shape
-        blocks = arr.reshape(lanes, frames, self.base_num, *rest)
-        return blocks[:, :, :self.advanced_num].reshape(
-            lanes, frames * self.advanced_num, *rest)
+        return distill(arr, frames, self.base_num, self.advanced_num)
 
     def update_lm(self, feats, g_feats, g_valid, index: int = 0):
         return feats + self.g_attn(index)(feats, g_feats, g_valid)

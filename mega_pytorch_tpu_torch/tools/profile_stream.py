@@ -1,12 +1,17 @@
 """Where a streaming step's time goes, on one CUDA card.
 
-    python -m mega_pytorch_tpu_torch.tools.profile_stream --out DIR [--lanes L]
+    python -m mega_pytorch_tpu_torch.tools.profile_stream --out DIR \
+        [--method {mega,rdn,fgfa,dff}] [--lanes L]
 
-Builds the flagship (MEGA R-101, bf16, 608x1024, seeded random weights) and
-streams the synthetic video of ``chip_smoke.py`` through ``run_video`` (one
-lane), or with ``--lanes L`` drives L lockstep lanes of synthetic frames
-through ``make_lockstep_step`` (every lane on the one-video schedule, its
-frames from a pool of random canvases):
+Builds the method's flagship (R-101, bf16, 608x1024, seeded random weights;
+``build_method_flagship``). MEGA with one lane (its default) streams the
+synthetic video of ``chip_smoke.py`` through ``run_video``; with ``--lanes
+L`` it drives L lockstep lanes of synthetic frames through
+``make_lockstep_step`` (every lane on the one-video schedule, its frames
+from a pool of random canvases). RDN and FGFA (4 lanes by default) drive
+``make_lockstep_step_windowed`` with every lane pushing a new frame each
+step after its first; DFF (4 lanes) alternates ``make_lockstep_steps_dff``'s
+key step and 9 non-key steps, its key interval of 10:
 
   1. warm-up steps (cuDNN plans, the kernel build), not counted;
   2. plain steps: host clock per step with a synchronise after it;
@@ -38,20 +43,29 @@ import numpy as np
 import torch
 
 from ..data.transforms import s2d_pack_frames
-from ..engine.batched_inference import make_lockstep_step
+from ..engine.batched_inference import (
+    make_lockstep_step,
+    make_lockstep_step_windowed,
+    make_lockstep_steps_dff,
+)
 from ..engine.inference import run_video, synthetic_video, video_schedule
+from ..models.detectors import build_method_flagship
+from ..models.detectors import dff as dff_mod
+from ..models.detectors import fgfa as fgfa_mod
 from ..models.detectors import mega as mega_mod
-from ..models.detectors.mega import build_mega_flagship
+from ..models.detectors import rcnn as rcnn_mod
+from ..models.detectors import rdn as rdn_mod
 
 CANVAS = (608, 1024)
 NUM_FRAMES = 40  # 52 steps with the 12 warm-up steps
 WARMUP, STEPS = 20, 10  # steps not counted; steps in each of the 3 phases
+KEY_INTERVAL = 10  # DFF
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
 def _lockstep_steps(model, lanes: int, rs: np.random.RandomState):
-    """Endless lockstep steps of ``lanes`` lanes on the one-video schedule."""
+    """Endless MEGA lockstep steps of ``lanes`` lanes on the one-video schedule."""
     dev = next(model.parameters()).device
     v = model.v
     pool = torch.from_numpy(s2d_pack_frames(
@@ -70,6 +84,35 @@ def _lockstep_steps(model, lanes: int, rs: np.random.RandomState):
         gframes = pool[(3 * lane + (gidx or 0)) % len(pool)]
         carries, dets = step(carries, frames, size, gframes, size,
                              *(f.expand(lanes) for f in flags))
+        s += 1
+        yield dets
+
+
+def _method_steps(model, lanes: int, rs: np.random.RandomState):
+    """Endless lockstep steps of RDN or FGFA (every lane resets on the first
+    step, then pushes a frame each step) or DFF (a key step, then
+    KEY_INTERVAL - 1 non-key steps)."""
+    dev = next(model.parameters()).device
+    method = model.v.method
+    pool = rs.randint(0, 256, (16, *CANVAS, 3), dtype=np.uint8)
+    if method == "rdn":
+        pool = s2d_pack_frames(pool, 4)
+    pool = torch.from_numpy(pool).to(dev)
+    size = torch.tensor(CANVAS, dtype=torch.float32, device=dev).expand(lanes, 2)
+    lane = torch.arange(lanes, device=dev)
+    if method == "dff":
+        key_step, nonkey_step = make_lockstep_steps_dff(model)
+    else:
+        step = make_lockstep_step_windowed(model)
+        pushes = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    carries, s = None, 0
+    while True:
+        frames = pool[(5 * lane + s) % len(pool)]
+        if method == "dff":
+            fn = key_step if s % KEY_INTERVAL == 0 else nonkey_step
+            carries, dets = fn(carries, frames, size)
+        else:
+            carries, dets = step(carries, frames, size, pushes)
         s += 1
         yield dets
 
@@ -101,40 +144,84 @@ def _layer_timers(model):
         return run
 
     ext = model.extractor
-    methods = [
-        (model, "precompute_pair", "precompute_pair (whole)"),
-        (model.backbone, "forward", "backbone, local + global frame of each lane"),
-        (model.rpn, "forward", "RPN head"),
-        (ext, "enhance_features", "res5 head + 1x1 reduce"),
-        (ext, "pool_flat", "ROIAlign"),
-        (ext, "fc0", "fc0"),
-        (model, "detect_key", "detect_key (whole)"),
-        (ext, "extract_test", "attention stages (extract_test)"),
-        (model.predictor, "forward", "predictor"),
-    ]
-    functions = [
-        ("shared_ref_key_postprocess", "RPN postprocess, key sets (6000 -> 300)"),
-        ("rpn_postprocess", "RPN postprocess, global frames (6000 -> 75)"),
-        ("postprocess_detections", "postprocess_detections (per-class NMS)"),
-    ]
-    saved = {name: getattr(mega_mod, name) for name, _ in functions}
+    method = model.v.method
+    if method == "mega":
+        methods = [
+            (model, "precompute_pair", "precompute_pair (whole)"),
+            (model.backbone, "forward", "backbone, local + global frame of each lane"),
+            (model.rpn, "forward", "RPN head"),
+            (ext, "enhance_features", "res5 head + 1x1 reduce"),
+            (ext, "pool_flat", "ROIAlign"),
+            (ext, "fc0", "fc0"),
+            (model, "detect_key", "detect_key (whole)"),
+            (ext, "extract_test", "attention stages (extract_test)"),
+            (model.predictor, "forward", "predictor"),
+        ]
+        functions = [
+            (rdn_mod, "shared_ref_key_postprocess",
+             "RPN postprocess, key sets (6000 -> 300)"),
+            (mega_mod, "rpn_postprocess", "RPN postprocess, global frames (6000 -> 75)"),
+            (rcnn_mod, "postprocess_detections", "postprocess_detections (per-class NMS)"),
+        ]
+    elif method == "rdn":
+        methods = [
+            (model, "precompute", "precompute (whole)"),
+            (model.backbone, "forward", "backbone, one frame a lane"),
+            (model.rpn, "forward", "RPN head"),
+            (ext, "enhance_features", "res5 head"),
+            (ext, "pool_flat", "ROIAlign"),
+            (ext, "fc0", "fc0 (fcs_0)"),
+            (model, "detect_key", "detect_key (whole)"),
+            (ext, "extract_test", "attention stages (extract_test)"),
+            (model.predictor, "forward", "predictor"),
+        ]
+        functions = [
+            (rdn_mod, "shared_ref_key_postprocess",
+             "RPN postprocess, key sets (6000 -> 300)"),
+            (rcnn_mod, "postprocess_detections", "postprocess_detections (per-class NMS)"),
+        ]
+    else:  # fgfa, dff: the flow net, the warp, and the single-frame heads
+        warp_mod = fgfa_mod if method == "fgfa" else dff_mod
+        methods = [
+            (model.backbone, "forward", "backbone, one frame a lane (key steps for dff)"),
+            (model.flownet, "forward", "FlowNetS"),
+            (model, "detect_heads", "detect_heads (whole)"),
+            (model.rpn, "forward", "RPN head"),
+            (ext, "forward", "res5 head + ROIAlign + fc6/fc7"),
+            (model.predictor, "forward", "predictor"),
+        ]
+        if method == "fgfa":
+            methods += [(model, "precompute", "precompute (whole)"),
+                        (model.embednet, "forward", "embedding net"),
+                        (model, "detect_key", "detect_key (whole)")]
+        else:
+            methods += [(model, "detect_non_key", "detect_non_key (whole)")]
+        functions = [
+            (warp_mod, "warp_by_flow", "warp_by_flow"),
+            (rcnn_mod, "rpn_postprocess", "RPN postprocess (6000 -> 300)"),
+            (rcnn_mod, "postprocess_detections", "postprocess_detections (per-class NMS)"),
+        ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in functions]
     for obj, name, label in methods:
         setattr(obj, name, timed(label, getattr(obj, name)))
-    for name, label in functions:
-        setattr(mega_mod, name, timed(label, getattr(mega_mod, name)))
+    for mod, name, label in functions:
+        setattr(mod, name, timed(label, getattr(mod, name)))
     try:
         yield calls
     finally:
         for obj, name, _ in methods:
             delattr(obj, name)  # the class attribute shows through again
-        for name, fn in saved.items():
-            setattr(mega_mod, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def _per_step_median(ms, steps):
     """Median over steps of a piece's summed ms (its calls come in step order,
-    the same number in each step)."""
+    the same number in each step); the mean over the steps where a piece
+    runs on some steps only (DFF's backbone, on key steps)."""
     per = len(ms) // steps
+    if per * steps != len(ms) or per == 0:
+        return sum(ms) / steps
     return statistics.median(sum(ms[i * per:(i + 1) * per]) for i in range(steps))
 
 
@@ -179,7 +266,9 @@ def _trace_summary(events, steps, wall_ms):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for the results")
-    ap.add_argument("--lanes", type=int, default=1, help="lockstep lanes (default 1)")
+    ap.add_argument("--method", default="mega", choices=("mega", "rdn", "fgfa", "dff"))
+    ap.add_argument("--lanes", type=int, default=None,
+                    help="lockstep lanes (default: 1 for mega, 4 for the others)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA card")
@@ -189,13 +278,16 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    model = build_mega_flagship(*CANVAS, device="cuda",
-                                generator=torch.Generator("cuda").manual_seed(0))
+    lanes = args.lanes or (1 if args.method == "mega" else 4)
+    model = build_method_flagship(args.method, *CANVAS, device="cuda", lanes=lanes,
+                                  generator=torch.Generator("cuda").manual_seed(0))
     rs = np.random.RandomState(0)
-    if args.lanes == 1:
+    if args.method != "mega":
+        gen = _method_steps(model, lanes, rs)
+    elif lanes == 1:
         gen = run_video(model, *synthetic_video(rs, NUM_FRAMES, *CANVAS))
     else:
-        gen = _lockstep_steps(model, args.lanes, rs)
+        gen = _lockstep_steps(model, lanes, rs)
     _steps(gen, WARMUP)
     plain = _steps(gen, STEPS)
     with _layer_timers(model) as calls:
@@ -217,7 +309,8 @@ def main(argv=None):
 
     summary = {
         "card": smi,
-        "lanes": args.lanes,
+        "method": args.method,
+        "lanes": lanes,
         "steps": {"warmup": WARMUP, "per_phase": STEPS},
         "plain_ms_per_step_median": statistics.median(plain),
         "plain_ms_per_step": plain,

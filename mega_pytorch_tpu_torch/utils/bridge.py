@@ -6,9 +6,13 @@ the tree that renames leaves and inverts layouts:
 - conv ``kernel`` HWIO → ``weight`` OIHW (the stem's canonical (7, 7, 3, 64)
   kernel included); ``nn.Dense`` ``kernel`` (in, out) → ``weight`` (out, in);
   ``bias`` as it is;
+- ``nn.ConvTranspose(transpose_kernel=True)`` ``kernel`` (kh, kw, out, in)
+  (FlowNetS's upsamplers) → ``conv_transpose2d``'s (in, out, kh, kw)
+  ``weight`` by the same 4-D transpose, with no spatial flip: flax's
+  transposed kernel is the gradient-of-convolution form PyTorch applies;
 - FrozenBN ``weight``/``bias``/``running_mean``/``running_var`` as they are;
-- RelationAttention ``u`` (g, E), ``Wg.kernel`` (E, g), ``Wg.bias``,
-  ``Wv_kernel`` (g, feat, d) and ``Wv_bias`` as they are.
+- RelationAttention ``u`` (g, E; MEGA only), ``Wg.kernel`` (E, g),
+  ``Wg.bias``, ``Wv_kernel`` (g, feat, d) and ``Wv_bias`` as they are.
 Pooled ROI features keep the JAX (h, w, c) flatten order, so ``l_fcs_0``
 converts like any dense layer.
 """

@@ -1,8 +1,12 @@
-"""Weight bridge: the flax parameter tree of the tiny MEGA loads strictly into
-the PyTorch port, and the fc0 flatten order of pooled ROI features agrees."""
+"""Weight bridge: the flax parameter trees of the tiny MEGA, RDN, FGFA, DFF
+and base detectors load strictly into the PyTorch port, the fc0 flatten
+order of pooled ROI features agrees, and transposed-convolution kernels
+bridge without a flip."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import linen as nn
 
@@ -73,3 +77,91 @@ def test_fc0_flatten_order_matches():
                                       torch.from_numpy(rois)[None]))[0]
     assert fc["kernel"].shape == (7 * 7 * 256, 1024)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv_transpose_bridges_without_a_flip():
+    """A flax ``ConvTranspose(transpose_kernel=True)`` kernel, stored
+    (kh, kw, out, in), becomes ``conv_transpose2d``'s (in, out, kh, kw)
+    weight by the bridge's 4-D rule, with no spatial flip (stride 2, VALID,
+    4x4: FlowNetS's upsamplers)."""
+    from mega_pytorch_tpu_torch.models.layers import ConvTranspose
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(2, 5, 7, 3).astype(np.float32)
+    mod = nn.ConvTranspose(6, (4, 4), strides=(2, 2), padding="VALID",
+                           transpose_kernel=True)
+    params = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = {"kernel": np.asarray(params["kernel"]),
+              "bias": rs.randn(6).astype(np.float32)}
+    want = np.asarray(mod.apply({"params": params}, jnp.asarray(x)))
+    port = ConvTranspose(3, 6, 4, 2)
+    port.load_state_dict(state_dict_from_flax(params), strict=True)
+    np.testing.assert_array_equal(port.weight.detach().numpy(),
+                                  params["kernel"].transpose(3, 2, 0, 1))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape == (2, 12, 16, 6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["rdn", "fgfa", "dff", "base"])
+def test_bridge_loads_method_trees_strictly(method):
+    """The tiny RDN (advanced stage), FGFA, DFF and base detectors' flax
+    trees, abstractly initialised, load strictly into the port's models:
+    RDN's attentions have no ``u``, DFF's flow net has the scale branch."""
+    from mega_pytorch_tpu.models.detectors.dff import GeneralizedRCNNDFF
+    from mega_pytorch_tpu.models.detectors.fgfa import GeneralizedRCNNFGFA
+    from mega_pytorch_tpu.models.detectors.rcnn import GeneralizedRCNN
+    from mega_pytorch_tpu.models.detectors.rdn import GeneralizedRCNNRDN, VidConfig
+    from mega_pytorch_tpu.structures.image_list import ImageBatch
+    from mega_pytorch_tpu_torch.models import detectors
+    from test_dff_fgfa import TINY_C as FLOW_C
+    from test_rdn import TINY_C as RDN_C
+    from test_rdn import TINY_V as RDN_V
+    from torch_port_harness import port_configs
+
+    packed = method == "rdn"
+    shape = (1, 16, 24, 48) if packed else (1, 64, 96, 3)
+    one = ImageBatch(tensors=jnp.zeros(shape), sizes=jnp.array([[64.0, 96.0]]))
+    key = jax.random.PRNGKey(0)
+    if method == "base":
+        model = GeneralizedRCNN(c=FLOW_C)
+        tree = jax.eval_shape(lambda: model.init(key, one))
+        port = detectors.GeneralizedRCNN(port_configs(FLOW_C, RDN_V)[0])
+    elif method == "dff":
+        v = VidConfig(method="dff")
+        model = GeneralizedRCNNDFF(c=FLOW_C, v=v)
+
+        def init():
+            tmp = model.init(key, one, method=model.make_key)
+            carry = model.apply(tmp, one, method=model.make_key)
+            rest = model.init(key, carry, one, method=model.detect_non_key)
+            return {"params": {**tmp["params"], **rest["params"]}}
+
+        tree = jax.eval_shape(init)
+        port = detectors.GeneralizedRCNNDFF(*port_configs(FLOW_C, v))
+    else:
+        c, v, cls, pcls = (
+            (RDN_C, RDN_V, GeneralizedRCNNRDN, detectors.GeneralizedRCNNRDN)
+            if method == "rdn" else
+            (FLOW_C, VidConfig(method="fgfa", all_frame_interval=5, key_frame_location=2),
+             GeneralizedRCNNFGFA, detectors.GeneralizedRCNNFGFA))
+        model = cls(c=c, v=v)
+
+        def init():
+            tmp = model.init(key, one, method=model.precompute)
+            entry = model.apply(tmp, one, method=model.precompute)
+            carry = model.apply(tmp, entry, one.sizes[0], method=model.init_carry)
+            return model.init(key, carry, one, method=model.test_step)
+
+        tree = jax.eval_shape(init)
+        port = pcls(*port_configs(c, v))
+    params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tree["params"])
+    sd = state_dict_from_flax(params)
+    port.load_state_dict(sd, strict=True)
+    assert set(port.state_dict()) == set(sd)
+    if method == "rdn":
+        assert "extractor.attn_3.Wg.kernel" in sd and "extractor.fcs_2.weight" in sd
+        assert not [k for k in sd if k.endswith(".u")]
+    if method == "dff":
+        assert sd["flownet.Convolution5_scale.weight"].shape == (1024, 194, 1, 1)

@@ -320,3 +320,29 @@ def test_attention_kernel_lanes_are_independent(cuda, mode):
     for lane in range(lanes):
         assert torch.equal(batched[lane:lane + 1], call(slice(lane, lane + 1))), lane
     assert float(batched[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(300, 2775), (555, 2775), (300, 555)])
+def test_attention_compute_at_rdn_shapes_without_u(cuda, n, m):
+    """Mode "compute" at RDN's shapes (base stages, advanced stage, final
+    stage) with uk = 0, RDN's attention having no u bias: the last 64-row
+    tile holds 43 rows at N=555 and the last ref tile 23 refs at M=2775, and
+    invalid refs mask by ``valid`` alone (a zero uk, not -inf). Wg keeps its
+    raw bias, as test_attention_kernel_matches_plain. Each lane equals its
+    B=1 call, and a lane with no valid ref gives zeros."""
+    q, k, v, uk, rois, refs, wk, wb, valid = _attention(cuda, 20, n=n, m=m)
+    uk = torch.zeros_like(uk)
+    valid[1, -23:] = False  # the ragged last ref tile, all invalid in lane 1
+    pos = (rois, refs, wk, wb)
+    got = _tensor_core_mode("compute", q, k, v, uk, None, valid, pos)
+    assert got.shape == (2, 16, n, 64) and torch.isfinite(got).all()
+    _assert_matches_plain(got, q, k, v, uk, None, valid, pos=pos)
+    for lane in range(2):
+        sl = slice(lane, lane + 1)
+        one = ra.flash_relation_attention_pos(
+            *(t[sl].contiguous() for t in (q, k, v, uk, rois, refs)), wk, wb,
+            valid[sl].contiguous())
+        assert torch.equal(got[sl], one), lane
+    none = torch.zeros_like(valid)
+    assert float(ra.flash_relation_attention_pos(q, k, v, uk, *pos, none).abs().max()) == 0.0

@@ -10,7 +10,10 @@
 * ``compute_on_dataset_lockstep`` against JAX ``compute_on_dataset(lanes=2)``
   on the synthetic two-video dataset, through the JAX package's dataset and
   preprocessor.
-* The engine's host scheduling (partition, video split, lane feed) against
+* The same for RDN (with its advanced stage), FGFA and DFF (key interval
+  2), each against JAX ``compute_on_dataset(lanes=2)``.
+* The engine's host scheduling (partition, video split, lane feed; DFF's
+  aligned partition and lane feed; the lane feed without globals) against
   the JAX engine's.
 * A lane with no valid ref gives zeros while the other lanes attend.
 """
@@ -41,7 +44,17 @@ from mega_pytorch_tpu_torch.utils.bridge import state_dict_from_flax
 from test_engine import TINY_C as ENGINE_C
 from test_engine import _dataset, _prep_kwargs
 from test_parity_reference import _match_detail, classify_unmatched
-from torch_port_harness import CANVAS, _perturb, port_mega_from, tiny_mega, to_np
+from torch_port_harness import (
+    CANVAS,
+    _perturb,
+    leaves,
+    off_relu_corner,
+    port_configs,
+    port_mega_from,
+    port_model_from,
+    tiny_mega,
+    to_np,
+)
 
 torch.set_num_threads(2)
 
@@ -79,13 +92,6 @@ def _inputs():
     return frames, sizes, gframes, sizes.copy()
 
 
-def _leaves(carry):
-    out = []
-    for x in carry:
-        out.extend(x if isinstance(x, tuple) else (x,))
-    return out
-
-
 def _port_stream(port, lanes=tuple(range(LANES))):
     """The port's lockstep steps over ``lanes`` → per step (carry, dets) numpy."""
     frames, sizes, gframes, gsizes = _inputs()
@@ -105,25 +111,10 @@ def _port_stream(port, lanes=tuple(range(LANES))):
     return out
 
 
-def _off_relu_corner(tree):
-    """The position weights' Wg bias at 0.5: pw = relu(Wg . sinusoids + b)
-    then stays far above its relu corner, where one bf16 step of a sinusoid
-    (torch's and XLA's log/sin differ by an ulp, which can flip one) would
-    move log pw by far more than float noise (test_torch_modules.py)."""
-    out = {}
-    for key, val in tree.items():
-        if key == "Wg":
-            val = dict(val, bias=np.full_like(val["bias"], 0.5))
-        elif isinstance(val, dict):
-            val = _off_relu_corner(val)
-        out[key] = val
-    return out
-
-
 @pytest.fixture(scope="module")
 def streams():
     model, params = tiny_mega()
-    params = _off_relu_corner(params)
+    params = off_relu_corner(params)
     port = port_mega_from(params)
     frames, sizes, gframes, gsizes = _inputs()
     step = jax_engine.make_lockstep_step(model)
@@ -183,7 +174,7 @@ def test_lane_equals_one_lane_step(streams):
     for lane in range(LANES):
         solo = _port_stream(port, lanes=(lane,))
         for s, ((pc, pd), (sc, sd)) in enumerate(zip(port_out, solo)):
-            for got, want in zip(_leaves(pc) + list(pd), _leaves(sc) + list(sd)):
+            for got, want in zip(leaves(pc) + list(pd), leaves(sc) + list(sd)):
                 msg = f"lane {lane} step {s}"
                 if want.dtype == np.float32:
                     np.testing.assert_allclose(got[lane], want[0], rtol=0,
@@ -198,6 +189,26 @@ def _engine_setup():
                   global_res_stage=0)
     model = jax_mega.GeneralizedRCNNMEGA(c=ENGINE_C, v=v)
     return model, v
+
+
+def _assert_predictions_match(got, want, indices):
+    """Every frame predicted once on both sides; per frame the same number
+    of boxes, and in score order the same labels, scores within 1e-3 and
+    boxes within 0.2 px (original image coordinates)."""
+    assert sorted(got) == sorted(want) == indices
+    n_boxes = 0
+    for i in indices:
+        w, g = want[i], got[i]
+        assert len(g["boxes"]) == len(w["boxes"]), i
+        n_boxes += len(w["boxes"])
+        wo, go = np.argsort(-w["scores"], kind="stable"), np.argsort(-g["scores"],
+                                                                     kind="stable")
+        np.testing.assert_array_equal(g["labels"][go], w["labels"][wo], err_msg=str(i))
+        np.testing.assert_allclose(g["scores"][go], w["scores"][wo], rtol=0, atol=1e-3,
+                                   err_msg=str(i))
+        np.testing.assert_allclose(g["boxes"][go], w["boxes"][wo], rtol=0, atol=0.2,
+                                   err_msg=str(i))
+    assert n_boxes > 0
 
 
 def test_compute_on_dataset_lockstep_matches_jax(tiny_root):
@@ -215,26 +226,73 @@ def test_compute_on_dataset_lockstep_matches_jax(tiny_root):
     carry = model.apply({"params": tmp}, entry, one.sizes[0], method=M.init_carry)
     params = jit_init(model, jax.random.PRNGKey(0), carry, one, method=M.test_step)["params"]
     # spread the class scores far beyond float noise (torch_port_harness)
-    params = _off_relu_corner(_perturb(to_np(params), np.random.RandomState(1)))
+    params = off_relu_corner(_perturb(to_np(params), np.random.RandomState(1)))
 
     indices = list(range(len(ds)))
     want = jax_compute_on_dataset(model, params, ds, indices, prep, "mega", lanes=2)
     port = port_mega_from(params, c=ENGINE_C, v=v)
     got = compute_on_dataset(port, ds, indices, prep, "mega", lanes=2)
-    assert sorted(got) == sorted(want) == indices
-    n_boxes = 0
-    for i in indices:
-        w, g = want[i], got[i]
-        assert len(g["boxes"]) == len(w["boxes"]), i
-        n_boxes += len(w["boxes"])
-        wo, go = np.argsort(-w["scores"], kind="stable"), np.argsort(-g["scores"],
-                                                                     kind="stable")
-        np.testing.assert_array_equal(g["labels"][go], w["labels"][wo], err_msg=str(i))
-        np.testing.assert_allclose(g["scores"][go], w["scores"][wo], rtol=0, atol=1e-3,
-                                   err_msg=str(i))
-        np.testing.assert_allclose(g["boxes"][go], w["boxes"][wo], rtol=0, atol=0.2,
-                                   err_msg=str(i))
-    assert n_boxes > 0
+    _assert_predictions_match(got, want, indices)
+
+
+def _method_setup(method, tiny_root):
+    """(JAX model, dataset, params) of the tiny engine configuration for
+    rdn, fgfa or dff, weights initialised on a zero frame and perturbed as
+    the MEGA test's."""
+    from mega_pytorch_tpu.data.datasets.vid import (
+        VIDDFFDataset,
+        VIDFGFADataset,
+        VIDRDNDataset,
+    )
+    from mega_pytorch_tpu.models.detectors.dff import GeneralizedRCNNDFF
+    from mega_pytorch_tpu.models.detectors.fgfa import GeneralizedRCNNFGFA
+    from mega_pytorch_tpu.models.detectors.rdn import GeneralizedRCNNRDN
+    from mega_pytorch_tpu.structures.image_list import ImageBatch
+
+    one = ImageBatch(tensors=np.zeros((1, 48, 64, 3), np.float32),
+                     sizes=np.array([[48.0, 64.0]], np.float32))
+    key = jax.random.PRNGKey(0)
+    if method == "dff":
+        model = GeneralizedRCNNDFF(c=ENGINE_C, v=VidConfig(method="dff"))
+        ds = _dataset(tiny_root, VIDDFFDataset, is_train=False, key_interval=2)
+        tmp = jit_init(model, key, one, method=model.make_key)["params"]
+        carry = model.apply({"params": tmp}, one, method=model.make_key)
+        params = dict(tmp, **{k: v for k, v in jit_init(
+            model, key, carry, one, method=model.detect_non_key)["params"].items()
+            if k not in tmp})
+    else:
+        if method == "rdn":
+            v = VidConfig(method="rdn", base_stage=2, advanced_stage=1,
+                          all_frame_interval=3, key_frame_location=1)
+            model, cls = GeneralizedRCNNRDN(c=ENGINE_C, v=v), VIDRDNDataset
+        else:
+            v = VidConfig(method="fgfa", all_frame_interval=3, key_frame_location=1)
+            model, cls = GeneralizedRCNNFGFA(c=ENGINE_C, v=v), VIDFGFADataset
+        ds = _dataset(tiny_root, cls, is_train=False, max_offset=1)
+        tmp = jit_init(model, key, one, method=model.precompute)["params"]
+        entry = model.apply({"params": tmp}, one, method=model.precompute)
+        carry = model.apply({"params": tmp}, entry, one.sizes[0], method=model.init_carry)
+        params = jit_init(model, key, carry, one, method=model.test_step)["params"]
+    params = off_relu_corner(_perturb(to_np(params), np.random.RandomState(1)))
+    return model, ds, params
+
+
+@pytest.mark.parametrize("method", ["rdn", "fgfa", "dff"])
+def test_compute_on_dataset_methods_match_jax(tiny_root, method):
+    """RDN (packed frames, the advanced stage), FGFA and DFF (key interval 2,
+    so both steps and the alignment padding run) through the lockstep
+    engine with 2 lanes, against the JAX package's on the same videos."""
+    from mega_pytorch_tpu_torch.models import detectors
+
+    model, ds, params = _method_setup(method, tiny_root)
+    prep = EvalPreprocessor(**_prep_kwargs())
+    indices = list(range(len(ds)))
+    want = jax_compute_on_dataset(model, params, ds, indices, prep, method, lanes=2)
+    cls = {"rdn": detectors.GeneralizedRCNNRDN, "fgfa": detectors.GeneralizedRCNNFGFA,
+           "dff": detectors.GeneralizedRCNNDFF}[method]
+    port = port_model_from(cls, params, *port_configs(ENGINE_C, model.v))
+    got = compute_on_dataset(port, ds, indices, prep, method, lanes=2)
+    _assert_predictions_match(got, want, indices)
 
 
 class _Prep:
@@ -310,6 +368,37 @@ def test_host_schedule_matches_jax(part):
                     for key in g:
                         np.testing.assert_array_equal(g[key], w[key],
                                                       err_msg=f"{key} step {s}")
+
+
+@pytest.mark.parametrize("part", ["partition_dff", "dff_lane_feed", "lane_feed_no_global"])
+def test_method_host_schedule_matches_jax(part):
+    """DFF's aligned partition and lane feed (key interval 3, so videos
+    start on steps 0, 3, 6, ...), and the lane feed of RDN and FGFA, which
+    reads no global refs."""
+    lengths = [5, 1, 9, 3, 3, 7, 2]
+    ds = _Videos(lengths)
+    videos = engine.split_videos(ds, range(len(ds.image_set_index)))
+    if part == "partition_dff":
+        for lanes in (1, 3, 4, 12):
+            assert engine._partition_dff(videos, lanes, 3) == jax_engine._partition_dff(
+                videos, lanes, 3)
+        return
+    if part == "dff_lane_feed":
+        bins, steps = engine._partition_dff(videos, 3, 3)
+        feeds = [(iter(engine._DFFLaneFeed(ds, _Prep(), b, 3)),
+                  iter(jax_engine._DFFLaneFeed(ds, _Prep(), b, 3))) for b in bins]
+    else:
+        ds.global_ref_ids = None  # never read
+        bins, steps = engine._partition(videos, 3, 2)
+        feeds = [(iter(engine._LaneFeed(ds, _Prep(), b, 2, False, 4)),
+                  iter(jax_engine._LaneFeed(ds, _Prep(), b, 2, False, pack=4)))
+                 for b in bins]
+    for got, want in feeds:
+        for s in range(steps + 3):  # into the idle tail
+            g, w = next(got), next(want)
+            assert g.keys() == w.keys()
+            for key in g:
+                np.testing.assert_array_equal(g[key], w[key], err_msg=f"{key} step {s}")
 
 
 def test_empty_refs_give_zeros_per_lane():

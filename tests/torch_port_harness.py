@@ -1,9 +1,12 @@
 """Shared set-up for the PyTorch port's parity tests (tests/test_torch_*.py).
 
 The JAX package is the reference: a tiny MEGA (R-14, the TINY_C / TINY_V
-configuration of test_mega.py) is initialised by flax, its parameter tree is
-bridged into the port with ``state_dict_from_flax`` and loaded strictly, and
-both stacks are fed the same numpy inputs. Compute is float32 on both sides.
+configuration of test_mega.py), or a tiny model of another method, is
+initialised by flax, its parameter tree is bridged into the port with
+``state_dict_from_flax`` and loaded strictly, and both stacks are fed the
+same numpy inputs. Compute is float32 on both sides. Also here: the
+comparison of lockstep carries and detections that the per-method tests
+share.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ def _perturb(params, rs):
                 val = (1.0 + rs.rand(*val.shape) * 0.5).astype(np.float32)
             elif key == "kernel" and p[-2] in ("cls_logits", "cls_score"):
                 val = val * 30.0
-            elif key == "kernel" and p[-2] == "l_fcs_0":
+            elif key == "kernel" and p[-2] in ("l_fcs_0", "fcs_0", "fc6"):
                 val = val * 0.1
             out[key] = val
         return out
@@ -96,9 +99,77 @@ def tiny_mega():
     return model, params
 
 
-def port_mega_from(params, c=TINY_C, v=TINY_V):
-    """The port's MEGA with the bridged weights, f32, on the CPU."""
-    pc, pv = port_configs(c, v)
-    model = port_mega.GeneralizedRCNNMEGA(pc, pv)
+def port_model_from(cls, params, *args):
+    """The port's ``cls(*args)`` with the bridged weights loaded strictly,
+    f32, on the CPU, in eval mode."""
+    model = cls(*args)
     model.load_state_dict(state_dict_from_flax(params), strict=True)
     return model.eval().requires_grad_(False)
+
+
+def off_relu_corner(tree):
+    """The position weights' Wg bias at 0.5: pw = relu(Wg . sinusoids + b)
+    then stays far above its relu corner, where one bf16 step of a sinusoid
+    (torch's and XLA's log/sin differ by an ulp, which can flip one) would
+    move log pw by far more than float noise (test_torch_modules.py)."""
+    out = {}
+    for key, val in tree.items():
+        if key == "Wg":
+            val = dict(val, bias=np.full_like(val["bias"], 0.5))
+        elif isinstance(val, dict):
+            val = off_relu_corner(val)
+        out[key] = val
+    return out
+
+
+def leaves(carry):
+    """A carry's tensors in field order, per-stage tuples flattened."""
+    out = []
+    for x in carry:
+        out.extend(x if isinstance(x, tuple) else (x,))
+    return out
+
+
+def assert_field_close(want, got, atol, msg):
+    """One carry field (or a tuple of per-stage fields): booleans exact,
+    floats within ``atol``."""
+    pairs = zip(want, got) if isinstance(want, tuple) else [(want, got)]
+    for w, g in pairs:
+        w, g = np.asarray(w), np.asarray(g)
+        assert w.shape == g.shape, msg
+        if w.dtype == bool:
+            np.testing.assert_array_equal(g, w, err_msg=msg)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=atol, err_msg=msg)
+
+
+def match_detections(want, got, lanes):
+    """Per lane, the port's detections ``got`` (L, D) against the JAX
+    package's ``want`` ((L, D) or vmapped (L, 1, D)), matched by label,
+    score and box as in the live reference parity suite; asserts finite
+    boxes and scores and no unexplained (drift) mismatch. Returns (matched,
+    reference detections), summed over the lanes."""
+    from test_parity_reference import _match_detail, classify_unmatched
+
+    def lane(dets, i):  # boxes (D, 4), scores (D,), labels (D,), valid (D,)
+        return [np.asarray(x)[i].reshape(-1, 4) if j == 0 else np.asarray(x)[i].reshape(-1)
+                for j, x in enumerate(dets)]
+
+    total = matched_all = 0
+    for i in range(lanes):
+        w, g = lane(want, i), lane(got, i)
+        assert np.isfinite(g[0]).all() and np.isfinite(g[1]).all()
+        vw, vg = w[3], g[3]
+        ref = w[0][vw], w[1][vw], w[2][vw]
+        ours = g[0][vg], g[1][vg], g[2][vg]
+        matched, _, unmatched, used = _match_detail(ref, ours)
+        counts = classify_unmatched(ref, ours, unmatched, used)
+        assert counts["DRIFT"] == [], (i, counts)
+        total += len(ref[0])
+        matched_all += matched
+    return matched_all, total
+
+
+def port_mega_from(params, c=TINY_C, v=TINY_V):
+    """The port's MEGA with the bridged weights, f32, on the CPU."""
+    return port_model_from(port_mega.GeneralizedRCNNMEGA, params, *port_configs(c, v))
