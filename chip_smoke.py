@@ -54,7 +54,9 @@ Phases, each printing its own lines:
      first 15 steps re-run from fresh carries must be bit-identical; prints
      ms/step, frames/s and peak memory;
   10. base: the single-frame detector's ``forward_test`` on 4 packed frames
-     launches the stem pool once a call and gives finite detections.
+     launches the stem pool once a call and gives finite detections; its
+     stem on s2d(2)-packed frames of the canvas launches no kernel and in
+     f32 equals the canonical branch within 1e-4 + 1e-5 max|out|.
 Each phase prints its seconds. The last two lines are the kernel table and
 the device record as JSON. Any failed check raises, and the script exits
 non-zero.
@@ -86,6 +88,10 @@ ATOL_NONE, ATOL_POS = 6e-3, 2e-2
 # mean error against the flat version is ~2e-4 to 4e-4)
 MEAN_POS_TILED = 5e-5
 RTOL_BIAS, ATOL_BIAS = 5e-3, 6e-3  # fused_position_bias in weight space
+# the s2d(2) stem against the canonical one in f32 (TF32 off): the same sums
+# of 147 products in another order by cuDNN's algorithms, so ATOL_STEM plus
+# RTOL_STEM times the largest output
+ATOL_STEM, RTOL_STEM = 1e-4, 1e-5
 TIMING_REPEATS = 25  # timed turns per version
 TIMING_INNER = 10  # back-to-back calls per timed turn
 # the card's peak rates for bound_ms (NVIDIA H100 SXM data sheet, 700 W);
@@ -165,6 +171,23 @@ def _attention_bound(mode, x, bias=None):
         tensors.append(bias)
         f32 += pairs * g
     return _bound(_nbytes(*tensors) + b * g * n * d * 4, flops, f32, sfu)
+
+
+def _position_bias_bound(pargs, out):
+    """(bound, old count) of one fused_position_bias call: each operand read
+    once and the (16, N, M) f32 output written once; per pair the Wg
+    contraction (2 x 64 x 16 FLOPs) on the tensor cores, the 2 logs of dx/dy,
+    their 32 sinusoids and the 16 output logs on the special function units,
+    and per (pair, group) the bias add, relu and + 1e-6 in f32, as
+    _attention_bound counts the position weight of mode "compute". The old
+    count, the f32 kernel's, put the contraction on the CUDA cores: per pair
+    4 + 16 logs, 64 sinusoids, 16 x 64 FMAs and 16 bias adds and relus."""
+    n_pairs = pargs[0].shape[0] * pargs[1].shape[0]
+    nbytes = _nbytes(*pargs, out)
+    g = out.shape[0]
+    return (_bound(nbytes, bf16_flops=n_pairs * 2 * 64 * g, f32_ops=n_pairs * g * 3,
+                   sfu_ops=n_pairs * (2 + 32 + g)),
+            _bound(nbytes, f32_ops=n_pairs * (20 + 64 + 2 * 1024 + 32)))
 
 
 def _library_fn(x, bias=None):
@@ -405,17 +428,18 @@ def phase_kernels():
     ms, plain_ms = _time_pair(
         lambda: pb.reference_position_bias(*pargs, 64, sin_dtype=torch.float32),
         lambda: pb.fused_position_bias(*pargs))
+    bound, old = _position_bias_bound(pargs, got)
     print(f"[kernels] fused_position_bias (675, 3750, g=16): weight-space "
           f"max_abs_err {err:.3e} (rtol {RTOL_BIAS}, atol {ATOL_BIAS}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}), share {bound['bound_ms'] / ms:.3f}; the old count "
+          f"(all f32 on the CUDA cores) {old['bound_ms']:.4f} ms "
+          f"({old['bound_by']}), share {old['bound_ms'] / ms:.3f}")
     if not (torch.isfinite(got).all() and excess <= 0.0):
         _fail("fused_position_bias differs from its plain version beyond tolerance")
-    # bound: per pair 4 + 16 logs, 64 sinusoids, 16 x 64 FMAs, 16 bias adds
-    # and relus, all f32; the (16, N, M) f32 output written once
-    n_pairs = pargs[0].shape[0] * pargs[1].shape[0]
     rows["fused_position_bias"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **_bound(_nbytes(*pargs, got), f32_ops=n_pairs * (20 + 64 + 2 * 1024 + 32)))
+        bound_ms_f32_count=old["bound_ms"], **bound)
 
     # the path's kernels at the 12-lane step's shapes (2 x 12 frames, B=12)
     y = (torch.randn(2 * LANES, 152, 256, 256, generator=gen, device=dev) * 2
@@ -913,9 +937,50 @@ def phase_base(smi):
         _fail(f"base: launch counts {launches} != {expect}")
     if not finite or tuple(dets.boxes.shape) != (METHOD_LANES, 300, 4):
         _fail("base: detections not finite or of the wrong shape")
+    _check_s2d2_stem(model.backbone.stem, rs, kernels, smi)
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+def _check_s2d2_stem(stem, rs, kernels, smi):
+    """The stem on s2d(2)-packed frames of the flagship canvas: no kernel
+    launch (the JAX package runs none on this branch), finite in the model's
+    bf16, and in f32 with the model's weights (TF32 off) equal to the
+    canonical 7x7/2 branch within ATOL_STEM + RTOL_STEM max|out|."""
+    import torch
+    from mega_pytorch_tpu_torch.data.transforms import normalize_u8_frames, s2d_pack_frames
+    from mega_pytorch_tpu_torch.models.backbone.resnet import Stem
+
+    dev = torch.device("cuda")
+    raw = rs.randint(0, 256, (2, *CANVAS, 3), dtype=np.uint8)
+    sizes = torch.tensor([CANVAS, (CANVAS[0] - 18, CANVAS[1] - 42)], dtype=torch.float32,
+                         device=dev)  # one padded canvas
+    f32 = Stem(64, torch.float32, dev)
+    f32.load_state_dict(stem.state_dict())  # canonical kernel and frozen BN
+    f32.eval().requires_grad_(False)
+    with torch.inference_mode():
+        x3 = normalize_u8_frames(torch.from_numpy(raw).to(dev), sizes)
+        x12 = normalize_u8_frames(torch.from_numpy(s2d_pack_frames(raw, 2)).to(dev), sizes)
+        for k in kernels:
+            k.launches = 0
+        low = stem(x12)
+        got, want = f32(x12), f32(x3)
+        torch.cuda.synchronize()
+        launches = sum(k.launches for k in kernels)
+    err = (got - want).abs().max().item()
+    tol = ATOL_STEM + RTOL_STEM * want.abs().max().item()
+    shape = (2, 64, CANVAS[0] // 4, CANVAS[1] // 4)
+    print(f"[base] stem on s2d(2)-packed frames (2, {CANVAS[0] // 2}, {CANVAS[1] // 2}, 12): "
+          f"{tuple(got.shape)}, f32 against the canonical branch max_abs_err {err:.3e} "
+          f"(tolerance {tol:.3e}); bf16 finite "
+          f"{bool(torch.isfinite(low).all())}; kernel launches {launches}; {smi}")
+    if launches != 0:
+        _fail(f"the s2d(2) stem launched {launches} kernels")
+    if tuple(got.shape) != shape or tuple(low.shape) != shape or not err <= tol:
+        _fail("the s2d(2) stem differs from the canonical branch")
+    if not torch.isfinite(low).all():
+        _fail("the s2d(2) stem in bf16 is not finite")
 
 
 def phase_position_bias_paths():

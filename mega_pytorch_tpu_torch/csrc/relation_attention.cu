@@ -140,13 +140,13 @@ constexpr int TM = 64;   // refs per tile
 constexpr float NEG_INF = -1e30f;
 constexpr float SCALE = 0.125f;  // 1 / sqrt(D)
 constexpr int MODE_NONE = 0, MODE_COMPUTE = 1, MODE_INPUT = 2;
+using posw::ldmatrix_x4;  // the tensor-core helpers both position kernels share
+using posw::mma_bf16;
+using posw::mma_f16;
+using posw::smem_addr;
 
 // ---------------------------------------------------------------------------
 // Tensor-core helpers of both kernels
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // cp.async of `size` bytes; only `src_bytes` (0 or size) are read, the rest
 // of the destination is zero-filled
@@ -170,36 +170,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) . b (16x8, col), bf16 operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a (16x16, row) . b (16x8, col), fp16 operands, f32 sums
-__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -527,6 +501,8 @@ constexpr int PW_PLANE = TN * PW_STRIDE + 8;  // per group; +8 staggers the bank
 constexpr int CLUSTER = G / GB;           // the 8 group pairs of one (lane, 64 rows)
 constexpr int ROW_TILES = TN / CLUSTER * TM / 16 / WARPS;  // feature tiles per warp (4)
 constexpr int MIN_BLOCKS = 65536 / 128 / NT;  // blocks per SM at 128 registers
+using posw::split_bf16;
+using posw::tsw;
 
 struct Smem {
   __nv_bfloat16 k[GB][TM * D];  // swizzled 128-byte rows
@@ -543,13 +519,6 @@ struct Smem {
   float4 ml[NT];                 // a thread's running max and sums (rows gid, gid + 8)
 };
 
-// element offset of 16-byte chunk `chunk` (of 4) of row `row` of an S or T
-// tile: chunks XOR-swizzled by row / 2, so ldmatrix's 8 rows hit 8 distinct
-// 16-byte bank groups
-__device__ __forceinline__ int tsw(int row, int chunk) {
-  return row * J + ((chunk ^ ((row >> 1) & 3)) << 3);
-}
-
 // the thread index, read afresh: the addresses derived from it are
 // recomputed where they are used instead of being hoisted out of the tile
 // loop, where they outlived the feature pass and spilled
@@ -557,17 +526,6 @@ __device__ __forceinline__ int tid_now() {
   int t;
   asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
   return t;
-}
-
-// (a, b) as a bf16 pair hi plus the bf16 pair lo of the remainders, both
-// truncated (a byte permute, no conversion instruction): hi + lo carries 15
-// bits of each (x - hi is exact in f32)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
-  hi = __byte_perm(ua, ub, 0x7632);
-  const float la = a - __uint_as_float(ua & 0xffff0000u);
-  const float lb = b - __uint_as_float(ub & 0xffff0000u);
-  lo = __byte_perm(__float_as_uint(la), __float_as_uint(lb), 0x7632);
 }
 
 __global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(NT, MIN_BLOCKS)
@@ -689,8 +647,8 @@ relation_attention_pos_tc_kernel(const __nv_bfloat16* __restrict__ q,
         for (int h = 0; h < 2; ++h) {     // pairs gid, gid + 8
           const float4 rg = sm.rgeo[row];
           const float4 c = fg[m16 + gid + 8 * h];
-          const float d = kk == 0 ? __logf(fabsf(__fmul_rn(rg.x - c.x, rg.z)) + 1e-3f)
-                                  : __logf(fabsf(__fmul_rn(rg.y - c.y, rg.w)) + 1e-3f);
+          const float d = kk == 0 ? posw::dxy_of(rg.x, rg.z, c.x)
+                                  : posw::dxy_of(rg.y, rg.w, c.y);
           float s0, c0, s1, c1;
           posw::sincos_reduced(__fmul_rn(d, fr0), s0, c0);
           posw::sincos_reduced(__fmul_rn(d, fr1), s1, c1);

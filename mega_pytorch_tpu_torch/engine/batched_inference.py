@@ -23,9 +23,10 @@ the same engine step, and the engine alternates a key step (backbone, flow,
 heads) and a non-key step (flow, heads) by a host counter.
 
 Host IO runs ahead of the device: a producer thread assembles each step's
-lane batch (decode, resize and canvas through the preprocessor, s2d(4)
-packing for MEGA and RDN) with a thread pool into a bounded queue, in pinned
-memory that the step copies to the card with ``non_blocking=True``. The
+lane batch (decode, resize and canvas through the preprocessor, s2d(4) or
+s2d(2) packing for MEGA and RDN, ``pack_factor``) with a thread pool into a
+bounded queue, in pinned memory that the step copies to the card with
+``non_blocking=True``. The
 dataset and the preprocessor are duck-typed as in the JAX engine:
 ``pattern``, ``frame_seg_len``, ``load_frame``, ``global_ref_ids`` (MEGA),
 ``key_interval`` (DFF, default 10), ``get_img_info``, ``image_set_index``
@@ -66,8 +67,8 @@ def make_lockstep_step(model) -> Callable:
     step(carries, frames, sizes, gframes, gsizes, resets, gmasks, emits)
       → (carries, Detections)   [every leading dim = lanes]
 
-    frames/gframes (L, H, W, C) uint8 (C = 48 for s2d(4)-packed canvases),
-    sizes/gsizes (L, 2) f32 [h, w] in canvas pixels, resets/gmasks/emits (L,)
+    frames/gframes (L, H, W, C) uint8 (C = 48 / 12 for s2d(4) / s2d(2)
+    canvases), sizes/gsizes (L, 2) f32 [h, w] in canvas pixels, resets/gmasks/emits (L,)
     bool, all on the model's device."""
 
     @torch.inference_mode()
@@ -95,8 +96,8 @@ def make_lockstep_step_windowed(model) -> Callable:
 
     step(carries, frames, sizes, resets) → (carries, Detections)
 
-    frames (L, H, W, C) uint8 (C = 48 for s2d(4)-packed canvases), sizes
-    (L, 2), resets (L,) bool. ``carries`` None: every lane resets (the first
+    frames (L, H, W, C) uint8 (C = 48 / 12 for s2d(4) / s2d(2) canvases),
+    sizes (L, 2), resets (L,) bool. ``carries`` None: every lane resets (the first
     step, where every lane starts a video)."""
 
     @torch.inference_mode()
@@ -150,7 +151,7 @@ class _LaneFeed:
         self.videos = videos
         self.warmup = warmup
         self.use_global = use_global  # MEGA's global cache; RDN, FGFA have none
-        self.pack = pack  # host-side s2d factor (0 = unpacked, or 4)
+        self.pack = pack  # host-side s2d factor (0 = unpacked, 2 or 4)
 
     def _frame(self, pattern, fid):
         p = self.prep._prep_u8(self.dataset.load_frame(pattern, fid), flip=False)
@@ -268,6 +269,20 @@ def _partition_dff(videos: list[list[int]], lanes: int, key_interval: int):
     return [b for b in bins if b], max(loads) if loads else 0
 
 
+def pack_factor(method: str, canvas_shape) -> int:
+    """The host-side s2d factor of a canvas (H, W, ...), as the JAX engine
+    picks it: MEGA and RDN pack s2d(4) when both sides are multiples of 4
+    (the stem's 3x3 reformulation and the stem pool kernel), else s2d(2)
+    when both are even (the stem's 4x4 reformulation), else nothing; FGFA's
+    carry and DFF's flow net read plain frames (0)."""
+    h, w = canvas_shape[0], canvas_shape[1]
+    if method not in ("mega", "rdn"):
+        return 0
+    if h % 4 == 0 and w % 4 == 0:
+        return 4
+    return 2 if h % 2 == 0 and w % 2 == 0 else 0
+
+
 def split_videos(dataset, indices) -> list[list[int]]:
     """Ascending ``indices`` (whole videos) → per-video index lists."""
     videos: list[list[int]] = []
@@ -334,13 +349,8 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
             feeds = [iter(_DFFLaneFeed(dataset, preprocessor, b, key_int)) for b in bins]
         else:
             bins, max_steps = _partition(group, lanes, warmup)
-            # host-side s2d(4) packing for MEGA and RDN: the stem runs its
-            # exact 3x3 reformulation and the stem pool kernel; FGFA's carry
-            # and DFF's flow net read plain frames, other canvases go unpacked
-            pack = 4 if (method in ("mega", "rdn") and canvas_shape[0] % 4 == 0
-                         and canvas_shape[1] % 4 == 0) else 0
-            feeds = [iter(_LaneFeed(dataset, preprocessor, b, warmup,
-                                    method == "mega", pack)) for b in bins]
+            feeds = [iter(_LaneFeed(dataset, preprocessor, b, warmup, method == "mega",
+                                    pack_factor(method, canvas_shape))) for b in bins]
         batches: queue.Queue = queue.Queue(maxsize=prefetch_depth)
         stop = threading.Event()
         with ThreadPoolExecutor(max_workers=min(16, 2 * len(bins))) as pool:

@@ -35,7 +35,7 @@ def serve_step(model, carry, frame, size, gframe, gsize, reset: bool,
                gmask: bool, emit: bool) -> StepOutput:
     """One lane step. carry: a one-lane MEGACarry without the lane dimension,
     or None before the first step; frame/gframe (H, W, C) uint8 tensors on
-    the model's device (C = 48 for s2d(4)-packed frames), size/gsize (2,)
+    the model's device (C = 48 or 12 for s2d(4)- or s2d(2)-packed frames), size/gsize (2,)
     f32 [h, w]."""
     from .batched_inference import make_lockstep_step
 
@@ -102,7 +102,7 @@ def run_video(model, frames: np.ndarray, global_frames: np.ndarray,
         raise ValueError(f"{len(frames)} frames need {need} global frames, "
                          f"got {len(global_frames)}")
     dev = next(model.parameters()).device
-    pack = {48: 4, 3: 1}[frames.shape[-1]]  # s2d(4)-packed or plain RGB
+    pack = {48: 4, 12: 2, 3: 1}[frames.shape[-1]]  # s2d(4), s2d(2) or plain RGB
     canvas = np.array([frames.shape[1] * pack, frames.shape[2] * pack], np.float32)
     if sizes is None:
         sizes = np.tile(canvas, (len(frames), 1))

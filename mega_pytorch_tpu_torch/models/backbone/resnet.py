@@ -68,6 +68,27 @@ class Bottleneck(nn.Module):
         return torch.relu(out + identity)
 
 
+# 7x7 kernel offset u (padding 3, stride 2) → (4-tap offset d, input phase a)
+# of the s2d(2) form: 2i + u - 3 = 2(i + d - 2) + a
+_S2D_TAPS = {0: (0, 1), 1: (1, 0), 2: (1, 1), 3: (2, 0), 4: (2, 1),
+             5: (3, 0), 6: (3, 1)}
+
+
+def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
+    """Canonical stem kernel (O, C, 7, 7) → the exact space-to-depth-2
+    equivalent (O, 4C, 4, 4) of a 4x4/1 conv with padding (2, 1) on both
+    axes: input channel (a*2 + b)*C + c is pixel (2p + a, 2q + b, c); the
+    (d=0, a=0) tap never occurs and stays zero."""
+    o, c = w7.shape[0], w7.shape[1]
+    w4 = torch.zeros((o, 4 * c, 4, 4), dtype=w7.dtype, device=w7.device)
+    for u in range(7):
+        du, a = _S2D_TAPS[u]
+        for v in range(7):
+            dv, b = _S2D_TAPS[v]
+            w4[:, (a * 2 + b) * c:(a * 2 + b + 1) * c, du, dv] = w7[:, :, u, v]
+    return w4
+
+
 def s2d4_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
     """Canonical stem kernel (O, C, 7, 7) → the exact space-to-depth-4
     equivalent (4O, 16C, 3, 3): output block (a', b') holds stem-conv output
@@ -98,8 +119,10 @@ class Stem(nn.Module):
     """7x7/2 conv + frozen BN + relu + 3x3/2 maxpool.
 
     A 48-channel s2d(4)-packed input runs the exact 3x3/1 reformulation and
-    the ``stem_pool_packed`` kernel; a 3-channel input runs the canonical
-    form. The packed kernel and the BN affine are derived from the canonical
+    the ``stem_pool_packed`` kernel; a 12-channel s2d(2)-packed input the
+    exact 4x4/1 reformulation, then BN, relu and the maxpool as the canonical
+    form (no kernel, as in the JAX package); a 3-channel input the canonical
+    form. The packed kernels and the BN affine are derived from the canonical
     parameters once, at initialisation and whenever weights are loaded."""
 
     def __init__(self, out_channels=64, dtype=torch.float32, device=None):
@@ -108,6 +131,7 @@ class Stem(nn.Module):
         self.conv1 = _StemConv1(out_channels, device)
         self.bn1 = FrozenBatchNorm2d(out_channels, dtype, device)
         self.register_buffer("w3", torch.empty(0, device=device), persistent=False)
+        self.register_buffer("w4", torch.empty(0, device=device), persistent=False)
         self.register_buffer("scale4", torch.empty(0, device=device), persistent=False)
         self.register_buffer("shift4", torch.empty(0, device=device), persistent=False)
         self.register_load_state_dict_post_hook(lambda m, _keys: m.refresh())
@@ -121,6 +145,8 @@ class Stem(nn.Module):
         w7 = self.conv1.weight.detach().float()
         self.w3 = s2d4_stem_kernel(w7).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
+        self.w4 = s2d_stem_kernel(w7).to(self.dtype).contiguous(
+            memory_format=torch.channels_last)
         scale, shift = self.bn1.affine_f32()
         self.scale4 = scale.float().repeat(4).contiguous()
         self.shift4 = shift.float().repeat(4).contiguous()
@@ -132,7 +158,10 @@ class Stem(nn.Module):
             pooled = stem_pool_packed(nhwc(y), self.scale4, self.shift4,
                                       self.out_channels)
             return nchw(pooled)
-        y = F.conv2d(nchw(x.to(dt)), self.conv1.weight.to(dt), stride=2, padding=3)
+        if x.shape[-1] == 12:  # (left, right, top, bottom) = (2, 1, 2, 1)
+            y = F.conv2d(F.pad(nchw(x.to(dt)), (2, 1, 2, 1)), self.w4)
+        else:
+            y = F.conv2d(nchw(x.to(dt)), self.conv1.weight.to(dt), stride=2, padding=3)
         y = torch.relu(self.bn1(y))
         return F.max_pool2d(y, 3, stride=2, padding=1)
 

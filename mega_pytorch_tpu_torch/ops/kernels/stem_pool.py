@@ -2,9 +2,11 @@
 
 Counterpart of ``mega_pytorch_tpu/ops/pallas/stem_pool.py``
 (``stem_pool_packed``), unfolded layout only. The CUDA kernel is
-``csrc/stem_pool.cu``: it replaces the Pallas ``_kernel``, is bound by one
-read of ``y`` and a quarter-size write, and runs one thread per 8 output
-channels with 16-byte loads (see the source note there).
+``csrc/stem_pool.cu``: it replaces the Pallas ``_kernel`` and is bound by
+one read of ``y`` and a quarter-size write. A warp walks a strip of one
+frame (a run of packed rows, a tile of 8 columns, 2 channels a lane) row by
+row and column by column, with the row and column halos in registers (see
+the source note there). The kernel takes out_ch = 64 (the stem's).
 
 Input ``y`` (N, T, U, 4*O) holds phase block (a'*2 + b')*O for stem-conv
 output position (2t+a', 2u+b'); the output (N, T, U, O) is the exact pad-1
@@ -52,22 +54,30 @@ def stem_pool_packed(
     if not y.is_contiguous():
         raise ValueError("y must be contiguous (N, T, U, 4*O); permute the "
                          "channels_last conv output, do not copy it")
-    if out_ch % 8:
-        raise ValueError("out_ch must be a multiple of 8")
+    if out_ch != 64:
+        raise ValueError(f"the kernel takes out_ch = 64 (the stem's), got {out_ch}")
     for name, p in (("scale", scale), ("shift", shift)):
         if (p.device != y.device or p.dtype != torch.float32
                 or p.shape != (4 * out_ch,) or not p.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous f32 (4*O,) on {y.device}")
+    out = _launch(y, scale, shift, out_ch)
+    stem_pool_packed.launches += 1
+    return out
+
+
+def _launch(y, scale, shift, out_ch, lib=None):
+    """One launch on checked operands → (N, T, U, O). ``lib``: the kernel
+    library (default: the package's own; tools/kernel_ab.py passes
+    another tree's)."""
     n, t, u, _ = y.shape
     out = torch.empty((n, t, u, out_ch), dtype=y.dtype, device=y.device)
-    lib = load_library().lib
+    lib = load_library().lib if lib is None else lib
     status = lib.stem_pool_packed_launch(
         y.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
         n, t, u, out_ch, int(y.dtype == torch.bfloat16),
         torch.cuda.current_stream(y.device).cuda_stream,
     )
     check_launch(status, "stem_pool_packed")
-    stem_pool_packed.launches += 1
     return out
 
 

@@ -346,3 +346,103 @@ def test_attention_compute_at_rdn_shapes_without_u(cuda, n, m):
         assert torch.equal(got[sl], one), lane
     none = torch.zeros_like(valid)
     assert float(ra.flash_relation_attention_pos(q, k, v, uk, *pos, none).abs().max()) == 0.0
+
+
+def _stem_inputs(dev, seed, n, t, u, dtype, o=64):
+    rs = np.random.RandomState(seed)
+    y = torch.from_numpy(rs.randn(n, t, u, 4 * o).astype(np.float32) * 2)
+    scale = torch.from_numpy((rs.rand(4 * o) + 0.5).astype(np.float32)).to(dev)
+    shift = torch.from_numpy(rs.randn(4 * o).astype(np.float32)).to(dev)
+    return y, scale, shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [1, 3, 24])
+def test_stem_pool_kernel_exact_ragged_tiles(cuda, n, dtype):
+    """T = 37 and U = 65 cut the row strips and the 31-column tiles ragged
+    (tiles of 31, 31 and 3 columns), at 1, 3 and 24 frames, whose grids cut
+    the rows into strips of different lengths."""
+    y, scale, shift = _stem_inputs(cuda, 21 + n, n, 37, 65, dtype)
+    y = y.to(cuda, getattr(torch, dtype))
+    got = sp.stem_pool_packed(y, scale, shift, 64)
+    assert torch.equal(got, sp.stem_pool_packed_reference(y, scale, shift, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [1, 3, 24])
+def test_stem_pool_kernel_maxima_on_the_seams(cuda, n, dtype):
+    """Every output's maximum sits at its upper-left corner input, phase
+    (a'=1, b'=1) of cell (t - 1, u - 1): at a strip's first row that is the
+    row above the strip, at a tile's first column the halo column, so a
+    halo that is wrong or stale shows in every strip and tile."""
+    t, u = 45, 96
+    y, scale, shift = _stem_inputs(cuda, 31 + n, n, t, u, dtype)
+    ramp = 300.0 - 2.0 * (torch.arange(t)[:, None] + torch.arange(u)[None, :]).float()
+    y = y * 0.01
+    y[..., 3 * 64:] += ramp[None, :, :, None]  # phase 3 falls along t and u
+    y = y.to(cuda, getattr(torch, dtype))
+    got = sp.stem_pool_packed(y, scale, shift, 64)
+    want = sp.stem_pool_packed_reference(y, scale, shift, 64)
+    assert torch.equal(got, want)
+    corner = (y[..., 3 * 64:].float() * scale[3 * 64:] + shift[3 * 64:]).clamp_min(0.0)
+    assert torch.equal(want[:, 1:, 1:], corner[:, :-1, :-1].to(y.dtype))
+
+
+@pytest.mark.cuda
+def test_s2d2_stem_launches_no_stem_pool(cuda):
+    """12-channel frames take the 4x4/1 reformulation and the plain maxpool,
+    as the JAX package does, and match the canonical branch."""
+    from mega_pytorch_tpu_torch.models.backbone.resnet import Stem
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(cuda).manual_seed(3)
+    stem = Stem(64, torch.float32, cuda)
+    stem.init_weights(gen)
+    stem.eval().requires_grad_(False)
+    rs = np.random.RandomState(22)
+    x3 = torch.from_numpy((rs.randn(2, 50, 66, 3) * 50).astype(np.float32))
+    x12 = x3.reshape(2, 25, 2, 33, 2, 3).permute(0, 1, 3, 2, 4, 5).reshape(2, 25, 33, 12)
+    before = sp.stem_pool_packed.launches
+    with torch.inference_mode():
+        got = stem(x12.to(cuda))
+        want = stem(x3.to(cuda))
+    assert sp.stem_pool_packed.launches == before
+    assert got.shape == want.shape == (2, 64, 13, 17)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _flagship_boxes(rs, count, canvas=(608, 1024)):
+    """Boxes of 16-316 pixels anywhere on the canvas."""
+    ctr = rs.rand(count, 2) * np.array([canvas[1], canvas[0]])
+    wh = 16 + rs.rand(count, 2) * 300
+    return np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("m", [5, 300, 3750])
+@pytest.mark.parametrize("n", [1, 37, 675])
+def test_position_bias_kernel_ragged_and_far(cuda, n, m, floor):
+    """Row blocks of 16 and ref blocks of 128 cut ragged on both axes; refs
+    that repeat rois (dx = dy = log 1e-3, arguments of -690 rad at the
+    frequency 100) and boxes across the flagship canvas (dx up to log 60,
+    dw up to log 20); with ``floor`` Wg's bias at -0.1, which leaves pw at
+    its relu floor for about half the pairs."""
+    rs = np.random.RandomState(40 + n + m)
+    rois = _flagship_boxes(rs, n)
+    refs = _flagship_boxes(rs, m)
+    k = min(n, m)
+    refs[:k] = rois[:k]
+    wk = (rs.randn(64, 16) * 0.05).astype(np.float32)
+    wb = np.full(16, -0.1, np.float32) if floor else (rs.rand(16) * 0.1).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (rois, refs, wk, wb)]
+    before = pb.fused_position_bias.launches
+    got = pb.fused_position_bias(*args)
+    assert pb.fused_position_bias.launches == before + 1
+    want = pb.reference_position_bias(*args, 64, sin_dtype=torch.float32)
+    assert got.shape == (16, n, m) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.exp(), want.exp(), rtol=RTOL_BIAS, atol=ATOL_BIAS)
+    if floor:
+        assert float((want.exp() <= 2e-6).float().mean()) > 0.2
