@@ -56,7 +56,22 @@ Phases, each printing its own lines:
   10. base: the single-frame detector's ``forward_test`` on 4 packed frames
      launches the stem pool once a call and gives finite detections; its
      stem on s2d(2)-packed frames of the canvas launches no kernel and in
-     f32 equals the canonical branch within 1e-4 + 1e-5 max|out|.
+     f32 equals the canonical branch within 1e-4 + 1e-5 max|out|;
+  11. eval path: the evaluation entry point's code over a synthetic
+     ILSVRC2015 tree written to a temporary directory (index, XML
+     annotations; 12 videos of 10-20 frames of 720x1280, two portrait) whose
+     dataset, the port's ``VIDMEGADataset``, draws its frames instead of
+     decoding files: MEGA R-101 from the ``mega_R_101`` preset (no channel
+     reduce) with 12 lanes through ``compute_on_dataset`` (resize, global
+     schedule, ``video_shards``), each step launching what phase 6's do,
+     every frame predicted once with finite boxes inside its image, the
+     first 15 steps re-run bit for bit, ``evaluate_predictions`` with a
+     synthetic motion-IoU table (finite AP50 in the four buckets; random
+     weights make the values meaningless) and ``write_result``; then base
+     R-101 through the serial engine over the 10-frame first video (f32
+     canvases, canonical stem, no kernel launch). Prints the host resize's
+     ms a frame, the whole run's frames/s and ms/step, and the producer's
+     time a batch against the step.
 Each phase prints its seconds. The last two lines are the kernel table and
 the device record as JSON. Any failed check raises, and the script exits
 non-zero.
@@ -104,6 +119,8 @@ SFU_OPS = 132 * 16 * 1.98e9
 # tools/bench_methods.py runs 4 lanes)
 METHOD_LANES, METHOD_VIDEOS = 4, 8
 DFF_KEY_INTERVAL = 10
+# the eval path: on-disk synthetic videos of VID's 720p frames
+EVAL_VIDEOS, EVAL_FRAME = 12, (720, 1280)
 # RDN's attention shapes: (N, M) of base stages 0-1, the advanced stage and
 # the final stage (37 window frames of 75 refs, 15 of them distilled)
 RDN_SHAPES = (("base stages", 300, 2775), ("advanced stage", 555, 2775),
@@ -711,14 +728,15 @@ def _kernels():
             pb.fused_position_bias)
 
 
-def run_lanes(model, ds, lanes, dev):
+def run_lanes(model, ds, lanes, dev, run=None, tag=None):
     """Serve ``ds`` through ``compute_on_dataset_lockstep`` with ``lanes``
-    lanes and check the run: the launches of every kernel on every step
+    lanes (or through ``run()``, which must reach it, with ``ds`` as its
+    dataset) and check the run: the launches of every kernel on every step
     against ``PER_STEP[model.v.method]``, every frame emitted exactly once
     with finite boxes, and the first 15 steps re-run from the engine's first
     carries bit for bit. Returns (per-step ms, emissions per step, launches,
-    launches per step as measured, run seconds, the kind of each step).
-    Device-agnostic, so it also runs on the CPU."""
+    launches per step as measured, run seconds, the kind of each step, the
+    predictions). Device-agnostic, so it also runs on the CPU."""
     import torch
     from mega_pytorch_tpu_torch.engine import batched_inference as bi
 
@@ -728,11 +746,13 @@ def run_lanes(model, ds, lanes, dev):
 
     kernels = _kernels()
     method = model.v.method
+    tag = tag or f"lanes {method}"
     per_step = dict(PER_STEP[method])
     if dev.type != "cuda":  # plain versions: no launches
         per_step = dict.fromkeys(per_step, 0)
     slots = model.c.detections_per_img
     record = dict(ms=[], kinds=[], emitted=[], replay=[], bad_counts=[], first=[],
+                  replay_on=True, last=None,
                   finite=torch.ones((), dtype=torch.bool, device=dev))
     factories = {name: getattr(bi, name) for name in (
         "make_lockstep_step", "make_lockstep_step_windowed", "make_lockstep_steps_dff")}
@@ -741,6 +761,8 @@ def run_lanes(model, ds, lanes, dev):
         def run(carries, *inputs):
             if not record["first"]:
                 record["first"].append(carries)  # the engine's first carries
+            elif carries is not record["last"]:
+                record["replay_on"] = False
             before = {k.__name__: k.launches for k in kernels}
             t = time.perf_counter()
             carries, dets = step(carries, *inputs)
@@ -751,13 +773,17 @@ def run_lanes(model, ds, lanes, dev):
             delta = {k.__name__: k.launches - before[k.__name__] for k in kernels}
             if delta != per_step:
                 record["bad_counts"].append((len(record["ms"]) - 1, delta))
-            if tuple(dets.boxes.shape) != (lanes, slots, 4):
+            # a canvas group of fewer videos than lanes runs fewer lanes
+            if not (dets.boxes.shape[0] <= lanes and tuple(dets.boxes.shape[1:]) == (slots, 4)):
                 _fail(f"lockstep detections have shape {tuple(dets.boxes.shape)}")
             record["finite"] = record["finite"] & torch.isfinite(dets.boxes).all() \
                 & torch.isfinite(dets.scores).all()
-            if len(record["replay"]) < 15:
+            # the replay follows the first canvas group only: another group
+            # starts from fresh carries (not the last step's)
+            if record["replay_on"] and len(record["replay"]) < 15:
                 record["replay"].append((step, [a.clone() for a in inputs],
                                          [d.clone() for d in dets]))
+            record["last"] = carries
             return carries, dets
         return run
 
@@ -782,8 +808,11 @@ def run_lanes(model, ds, lanes, dev):
     bi._extract = counting_extract
     try:
         t0 = time.perf_counter()
-        results = bi.compute_on_dataset_lockstep(
-            model, ds, range(len(ds.image_set_index)), _Preprocessor(), lanes=lanes)
+        if run is None:
+            results = bi.compute_on_dataset_lockstep(
+                model, ds, range(len(ds.image_set_index)), _Preprocessor(), lanes=lanes)
+        else:
+            results = run()
         wall = time.perf_counter() - t0
     finally:
         for name, fn in factories.items():
@@ -792,12 +821,12 @@ def run_lanes(model, ds, lanes, dev):
     launches = {k.__name__: k.launches for k in kernels}
     steps = len(record["ms"])
     n_frames = len(ds.image_set_index)
-    print(f"[lanes {method}] {steps} steps of {lanes} lanes; launches {launches}; per "
+    print(f"[{tag}] {steps} steps of {lanes} lanes; launches {launches}; per "
           f"step {per_step} expected, steps that differ: {record['bad_counts'][:3]}")
     if record["bad_counts"] or steps == 0:
         _fail(f"{method}: lockstep kernel launch counts per step differ from {per_step}")
     once = bool((ds.info_calls == 1).all()) and sorted(results) == list(range(n_frames))
-    print(f"[lanes {method}] frames emitted exactly once: {once} ({len(results)} of "
+    print(f"[{tag}] frames emitted exactly once: {once} ({len(results)} of "
           f"{n_frames}; {sum(record['emitted'])} emissions)")
     if not once or sum(record["emitted"]) != n_frames:
         _fail(f"{method}: not every frame was emitted exactly once")
@@ -814,10 +843,11 @@ def run_lanes(model, ds, lanes, dev):
         for name, a, b in zip(dets._fields, dets, want):
             if not torch.equal(a, b):
                 _fail(f"{method}: lockstep re-run step {i}: {name} differs")
-    print(f"[lanes {method}] determinism: {len(record['replay'])} steps re-run from "
+    print(f"[{tag}] determinism: {len(record['replay'])} steps re-run from "
           f"fresh carries: detections bit-identical "
           f"({len(record['replay']) * lanes * slots} slots)")
-    return record["ms"], record["emitted"], launches, per_step, wall, record["kinds"]
+    return (record["ms"], record["emitted"], launches, per_step, wall, record["kinds"],
+            results)
 
 
 def _lane_stats(step_ms, emitted, lanes, n_frames, wall, smi, tag):
@@ -854,8 +884,8 @@ def phase_lanes(smi):
           f"{model.lanes} lanes in {time.perf_counter() - t0:.1f} s; {NUM_VIDEOS} "
           f"videos of {lengths.min()}-{lengths.max()} frames, {lengths.sum()} frames")
     torch.cuda.reset_peak_memory_stats()
-    step_ms, emitted, launches, per_step, wall, _ = run_lanes(model, ds, model.lanes,
-                                                              torch.device("cuda"))
+    step_ms, emitted, launches, per_step, wall, _, _ = run_lanes(model, ds, model.lanes,
+                                                                 torch.device("cuda"))
     peak = torch.cuda.max_memory_allocated() / 2**20
     _lane_stats(step_ms, emitted, LANES, len(ds.image_set_index), wall, smi, "lanes")
     print(f"[lanes] peak memory {peak:.0f} MiB; {smi}")
@@ -884,7 +914,7 @@ def phase_methods(smi):
               f"{METHOD_VIDEOS} videos of {lengths.min()}-{lengths.max()} frames, "
               f"{lengths.sum()} frames")
         torch.cuda.reset_peak_memory_stats()
-        step_ms, emitted, launches, per_step, wall, kinds = run_lanes(
+        step_ms, emitted, launches, per_step, wall, kinds, _ = run_lanes(
             model, ds, METHOD_LANES, torch.device("cuda"))
         peak = torch.cuda.max_memory_allocated() / 2**20
         _lane_stats(step_ms, emitted, METHOD_LANES, len(ds.image_set_index), wall, smi,
@@ -983,6 +1013,217 @@ def _check_s2d2_stem(stem, rs, kernels, smi):
         _fail("the s2d(2) stem in bf16 is not finite")
 
 
+def _write_vid_tree(root: Path, lengths, portrait, frame_hw, rs):
+    """A synthetic ILSVRC2015 layout under ``root``: the index
+    ``ImageSets/VID_val_videos.txt`` (``folder 1 seg_id seg_len`` lines) and
+    one XML annotation a frame with 1-3 random boxes of the 30 wnids; video
+    v is portrait where ``portrait[v]``. No frame files: the dataset that
+    reads this tree synthesises its frames. Returns the synthetic motion-IoU
+    table (one value a box), as ``vid_eval.load_motion_ious`` reads it."""
+    from mega_pytorch_tpu_torch.data.datasets.vid import VID_WNIDS
+
+    ilsvrc = root / "ILSVRC2015"
+    (ilsvrc / "ImageSets").mkdir(parents=True)
+    lines, mious = [], []
+    for v, n in enumerate(lengths):
+        h, w = frame_hw[::-1] if portrait[v] else frame_hw
+        folder = f"val/v{v:03d}"
+        (ilsvrc / "Annotations" / "VID" / folder).mkdir(parents=True)
+        for f in range(n):
+            objs = []
+            for _ in range(rs.randint(1, 4)):
+                x1, y1 = rs.randint(0, w - 40), rs.randint(0, h - 40)
+                x2, y2 = x1 + rs.randint(20, w - x1), y1 + rs.randint(20, h - y1)
+                objs.append(f"<object><name>{VID_WNIDS[rs.randint(1, 31)]}</name><bndbox>"
+                            f"<xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax>"
+                            f"<ymax>{y2}</ymax></bndbox></object>")
+            (ilsvrc / "Annotations" / "VID" / folder / f"{f:06d}.xml").write_text(
+                f"<annotation><size><height>{h}</height><width>{w}</width></size>"
+                f"{''.join(objs)}</annotation>")
+            mious.append(rs.rand(len(objs)))
+            lines.append(f"{folder} {len(lines) + 1} {f} {n}")
+    (ilsvrc / "ImageSets" / "VID_val_videos.txt").write_text("\n".join(lines) + "\n")
+    return mious
+
+
+def _synthetic_frames(base, frame_hw, rs, pool=6):
+    """``base`` (a dataset class of the port) whose ``decode_rgb`` draws the
+    frame from a pool of seeded uint8 frames of its video's orientation
+    instead of reading a file (this machine has no JPEG decoder), and which
+    counts ``get_img_info`` calls. Everything else is the port's own."""
+    frames = {
+        False: rs.randint(0, 256, (pool, *frame_hw, 3), dtype=np.uint8),
+        True: rs.randint(0, 256, (pool, *frame_hw[::-1], 3), dtype=np.uint8),
+    }
+
+    class SyntheticFrames(base):
+        def __init__(self, *args, portrait=(), **kw):
+            super().__init__(*args, **kw)
+            self.portrait = portrait
+            self.info_calls = np.zeros(len(self), np.int64)
+
+        def decode_rgb(self, path):
+            video, frame = path.split("/")[-2:]
+            v, f = int(video[1:]), int(frame.split(".")[0])
+            return frames[bool(self.portrait[v])][(7 * v + f) % pool]
+
+        def get_img_info(self, idx):
+            self.info_calls[idx] += 1
+            return super().get_img_info(idx)
+
+    return SyntheticFrames
+
+
+def run_eval_path(dev, cfg, base_cfg, frame_hw, lengths, portrait, lanes, smi, tag="eval"):
+    """The evaluation entry point's path on a synthetic on-disk VID tree:
+    ``cfg``'s MEGA through ``compute_on_dataset(lanes=lanes)`` (the port's
+    dataset, index and XML parsing, global schedule, ``EvalPreprocessor``
+    with ``resize_bilinear_u8``, ``video_shards``), checked per step by
+    ``run_lanes``; ``evaluate_predictions`` with a motion-IoU table and
+    ``write_result``; then ``base_cfg``'s detector through the serial
+    engine over the first video. Returns (launches, launches per step,
+    MEGA seconds a step, base launches)."""
+    import functools
+    import tempfile
+
+    import scipy.io as sio
+    import torch
+    from mega_pytorch_tpu_torch.data import transforms as tf
+    from mega_pytorch_tpu_torch.data.datasets.vid import VIDDataset, VIDMEGADataset
+    from mega_pytorch_tpu_torch.data.loader import EvalPreprocessor
+    from mega_pytorch_tpu_torch.data.paths_catalog import dataset_args
+    from mega_pytorch_tpu_torch.data.samplers import video_shards
+    from mega_pytorch_tpu_torch.engine import batched_inference as bi
+    from mega_pytorch_tpu_torch.engine.inference import compute_on_dataset, evaluate_predictions
+    from mega_pytorch_tpu_torch.models.detectors import build_detection_model
+    from mega_pytorch_tpu_torch.tools.test_net import dataset_kwargs, video_starts, write_result
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rs = np.random.RandomState(7)
+    prep = EvalPreprocessor(min_size=cfg.INPUT.MIN_SIZE_TEST, max_size=cfg.INPUT.MAX_SIZE_TEST,
+                            canvas_short=cfg.TPU.CANVAS_HEIGHT,
+                            canvas_long=cfg.TPU.CANVAS_WIDTH, max_gt=cfg.TPU.MAX_GT_BOXES)
+    # the host input layer, per frame: the resize, then the canvas and the pack
+    img = rs.randint(0, 256, (*frame_hw, 3), dtype=np.uint8)
+    oh, ow = tf.resize_hw(*frame_hw, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    host_ms = {}
+    for name, fn in (("resize", lambda: tf.resize_bilinear_u8(img, oh, ow)),
+                     ("resize+canvas", lambda: prep._prep_u8(img, flip=False)),
+                     ("resize+canvas+s2d(4) pack",
+                      lambda: tf.s2d_pack_frames(prep._prep_u8(img, flip=False).image, 4))):
+        fn()
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        host_ms[name] = statistics.median(ts)
+    print(f"[{tag}] host input per frame {frame_hw[0]}x{frame_hw[1]} -> ({oh}, {ow}), median "
+          f"of 20 on one thread: " + ", ".join(f"{k} {v:.2f} ms" for k, v in host_ms.items())
+          + f"; {smi}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        mious = _write_vid_tree(root, lengths, portrait, frame_hw, rs)
+        t0 = time.perf_counter()
+        model = build_detection_model(cfg, dev, torch.Generator(dev).manual_seed(0), lanes)
+        sync()
+        ds = _synthetic_frames(VIDMEGADataset, frame_hw, rs)(
+            **dataset_args("VID_val_videos", tmp), portrait=portrait,
+            **dataset_kwargs(cfg, "mega", 0))
+        indices = video_shards(video_starts(ds), len(ds), 1)[0]
+        print(f"[{tag}] built {cfg.MODEL.BACKBONE.CONV_BODY} MEGA ({cfg.TPU.COMPUTE_DTYPE}, "
+              f"reduce channel {cfg.MODEL.VID.ROI_BOX_HEAD.REDUCE_CHANNEL}) for {lanes} lanes "
+              f"in {time.perf_counter() - t0:.1f} s; {len(lengths)} videos "
+              f"({int(np.sum(portrait))} portrait) of {min(lengths)}-{max(lengths)} frames, "
+              f"{len(ds)} frames of {frame_hw[0]}x{frame_hw[1]}")
+        stats: dict = {}
+        lockstep = bi.compute_on_dataset_lockstep
+        bi.compute_on_dataset_lockstep = functools.partial(lockstep, stats=stats)
+        try:
+            step_ms, emitted, launches, per_step, wall, _, preds = run_lanes(
+                model, ds, lanes, dev, tag=tag,
+                run=lambda: compute_on_dataset(model, ds, indices, prep, "mega", lanes=lanes))
+        finally:
+            bi.compute_on_dataset_lockstep = lockstep
+        lane = _lane_stats(step_ms, emitted, lanes, len(ds), wall, smi, tag)
+        feed = statistics.median(stats["feed_s"]) * 1e3
+        wait = statistics.median(stats["wait_s"][5:]) * 1e3
+        print(f"[{tag}] host feed: the producer's median {feed:.2f} ms per {lanes}-lane batch "
+              f"({2 * lanes} frames) against the median step {lane['ms_per_step']:.2f} ms: "
+              f"share {feed / lane['ms_per_step']:.3f}; the step's median wait on the queue "
+              f"{wait:.2f} ms; the whole run {wall * 1e3 / len(step_ms):.2f} ms a step "
+              f"({len(step_ms)} steps, two canvas groups one after the other); {smi}")
+        for i in indices:
+            h, w = ds.get_img_info(i)["height"], ds.get_img_info(i)["width"]
+            b = preds[i]["boxes"]
+            if len(b) and not (np.isfinite(b).all() and b[:, [0, 2]].max() <= w + 1
+                               and b[:, [1, 3]].max() <= h + 1 and b.min() >= -1):
+                _fail(f"{tag}: frame {i} has boxes outside its {h}x{w} image")
+        mat = root / "motion_iou.mat"
+        cells = np.empty((len(mious), 1), object)
+        for i, m in enumerate(mious):
+            cells[i, 0] = m.reshape(-1, 1)
+        sio.savemat(mat, {"motion_iou": cells})
+        result = evaluate_predictions(ds, preds, str(mat))
+        write_result(result, tmp)
+        saved = json.loads((root / "result.json").read_text())
+        aps = {k: saved[k]["map"] for k in saved}
+        print(f"[{tag}] result.json AP50 by motion bucket {aps} (random weights: the values "
+              f"mean nothing, only that evaluation ran)")
+        if sorted(aps) != ["all", "fast", "medium", "slow"] or not all(
+                np.isfinite(v) for v in aps.values()):
+            _fail(f"{tag}: result.json lacks a finite AP50 of the four motion buckets")
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        base = build_detection_model(base_cfg, dev, torch.Generator(dev).manual_seed(0))
+        base_ds = _synthetic_frames(VIDDataset, frame_hw, rs)(
+            **dataset_args("VID_val_videos", tmp), portrait=portrait)
+        video = list(range(lengths[0]))
+        kernels = _kernels()
+        for k in kernels:
+            k.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        base_preds = compute_on_dataset(base, base_ds, video, prep, "base")
+        sync()
+        base_s = time.perf_counter() - t0
+        base_launches = {k.__name__: k.launches for k in kernels}
+        finite = all(np.isfinite(p["boxes"]).all() and np.isfinite(p["scores"]).all()
+                     for p in base_preds.values())
+        print(f"[{tag}] base ({base_cfg.MODEL.BACKBONE.CONV_BODY}) through the serial engine "
+              f"over video 0 ({len(video)} frames, f32 canvases, canonical stem): "
+              f"{len(base_preds)} frames predicted, finite {finite}, "
+              f"{len(video) / base_s:.2f} frames/s, launches {base_launches}; {smi}")
+        if sorted(base_preds) != video or not finite:
+            _fail(f"{tag}: the base method's serial run did not predict every frame")
+        if any(base_launches.values()):
+            _fail(f"{tag}: the serial base run launched {base_launches}")
+        del base
+    return launches, per_step, lane["ms_per_step"], base_launches
+
+
+def phase_eval_path(smi):
+    """The eval path at full width: MEGA R-101 (the preset, no channel
+    reduce) in bf16 on the 608x1024 canvas with 12 lanes over 12 on-disk
+    synthetic videos of 10-20 frames of 720x1280 (two of them portrait),
+    then base R-101 serially over the 10-frame first video."""
+    import torch
+    from mega_pytorch_tpu_torch.config import get_preset
+
+    rs = np.random.RandomState(11)
+    lengths = [10] + [int(n) for n in rs.randint(10, 21, EVAL_VIDEOS - 1)]
+    portrait = [v in (3, 8) for v in range(EVAL_VIDEOS)]
+    return run_eval_path(torch.device("cuda"), get_preset("mega_R_101").freeze(),
+                         get_preset("base_R_101").freeze(), EVAL_FRAME, lengths, portrait,
+                         LANES, smi)
+
+
 def phase_position_bias_paths():
     """The two kernels no model path launches, through their own entry
     points: RelationAttention(pos_emb=...) launches mode "input"; the
@@ -1061,6 +1302,7 @@ def main():
     lane_launches, per_step = timed("lanes", phase_lanes, smi)
     methods = timed("methods", phase_methods, smi)
     base_launches = timed("base", phase_base, smi)
+    eval_launches, eval_per_step, _, eval_base = timed("eval path", phase_eval_path, smi)
     path_launches = timed("position-bias paths", phase_position_bias_paths)
 
     source = {
@@ -1085,8 +1327,11 @@ def main():
     # no model path reaches; launches_per_step is what every step of each
     # lockstep run launched
     by_path = {"mega": lane_launches, **{m: c for m, (c, _) in methods.items()},
-               "base": base_launches, "position-bias paths": path_launches}
-    per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()}}
+               "base": base_launches, "eval path": eval_launches,
+               "eval path base (serial)": eval_base,
+               "position-bias paths": path_launches}
+    per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()},
+                        "eval path": eval_per_step}
     print(f"[result] launches per kernel: stream (1 lane) {launches}; by path {by_path}")
     print(f"[result] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     rows["stem_pool_packed"]["rdn_shape"] = rdn_stem

@@ -27,10 +27,11 @@ lane batch (decode, resize and canvas through the preprocessor, s2d(4) or
 s2d(2) packing for MEGA and RDN, ``pack_factor``) with a thread pool into a
 bounded queue, in pinned memory that the step copies to the card with
 ``non_blocking=True``. The
-dataset and the preprocessor are duck-typed as in the JAX engine:
-``pattern``, ``frame_seg_len``, ``load_frame``, ``global_ref_ids`` (MEGA),
+dataset is one of ``data/datasets/vid.py`` and the preprocessor
+``data/loader.EvalPreprocessor``; the engine reads ``pattern``,
+``frame_seg_len``, ``load_frame``, ``global_ref_ids`` (MEGA),
 ``key_interval`` (DFF, default 10), ``get_img_info``, ``image_set_index``
-and ``_prep_u8``.
+and ``_prep_u8``, so an in-memory stand-in with those serves too.
 """
 
 from __future__ import annotations
@@ -314,11 +315,15 @@ _FEED_KEYS = {
 
 def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
                                 lanes: int = 4, logger=None, log_period: int = 50,
-                                prefetch_depth: int = 8) -> dict:
+                                prefetch_depth: int = 8, stats: dict | None = None) -> dict:
     """Lockstep multi-lane streaming over whole videos → {idx: prediction}
     in original image coordinates. Dispatches on ``model.v.method``: mega
     (window, memory and global cache), rdn and fgfa (window only), dff
-    (phase-aligned key and non-key steps)."""
+    (phase-aligned key and non-key steps).
+
+    ``stats``, where given, receives the host feed's timing: ``feed_s``, the
+    producer's seconds per lane batch (decode, preprocess, pack, pin), and
+    ``wait_s``, the seconds each step waited on the queue for its batch."""
     method = model.v.method
     if method not in _FEED_KEYS:
         raise NotImplementedError(f"lockstep {method!r} is not ported")
@@ -340,6 +345,9 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
         step = (make_lockstep_step if method == "mega"
                 else make_lockstep_step_windowed)(model)
     keys = _FEED_KEYS[method]
+    if stats is None:
+        stats = {}
+    stats.update(feed_s=[], wait_s=[])
     results: dict = {}
     t0 = time.time()
     done = 0
@@ -355,14 +363,20 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
         stop = threading.Event()
         with ThreadPoolExecutor(max_workers=min(16, 2 * len(bins))) as pool:
             producer = threading.Thread(
-                target=_produce, args=(pool, feeds, keys, max_steps, dev, batches, stop),
+                target=_produce,
+                args=(pool, feeds, keys, max_steps, dev, batches, stop, stats["feed_s"]),
                 daemon=True)
             producer.start()
             try:
                 # every lane resets (or makes a key) on its first step
                 carries = model.zero_carry(len(bins), dev) if method == "mega" else None
                 s = 0
-                while (batch := batches.get()) is not None:
+                while True:
+                    t_wait = time.perf_counter()
+                    batch = batches.get()
+                    stats["wait_s"].append(time.perf_counter() - t_wait)
+                    if batch is None:
+                        break
                     if isinstance(batch, BaseException):
                         raise batch
                     inputs = [batch[k + "s"].to(dev, non_blocking=True) for k in keys]
@@ -402,11 +416,12 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
 
 
 def _produce(pool, feeds, keys, steps: int, dev, batches: queue.Queue,
-             stop: threading.Event) -> None:
+             stop: threading.Event, feed_s: list) -> None:
     """Producer thread: ``steps`` lane batches, then None; an exception is
     put on the queue for the consumer to raise. Each batch stacks the lanes'
-    items under ``keys`` (item "frame" as batch "frames", ...). Returns early
-    once ``stop`` is set (the consumer stopped)."""
+    items under ``keys`` (item "frame" as batch "frames", ...); the seconds
+    each batch took are appended to ``feed_s``. Returns early once ``stop``
+    is set (the consumer stopped)."""
     pin = dev.type == "cuda"
 
     def host(a):
@@ -417,6 +432,7 @@ def _produce(pool, feeds, keys, steps: int, dev, batches: queue.Queue,
         for _ in range(steps):
             if stop.is_set():
                 return
+            t0 = time.perf_counter()
             items = list(pool.map(next, feeds))
             batch = {k + "s": host(np.stack([it[k] for it in items])) for k in keys}
             batch.update(
@@ -424,6 +440,7 @@ def _produce(pool, feeds, keys, steps: int, dev, batches: queue.Queue,
                 emits=[it["emit"] for it in items],
                 origs=[it["orig_hw"] for it in items],
             )
+            feed_s.append(time.perf_counter() - t0)
             batches.put(batch)
         batches.put(None)
     except Exception as exc:  # handed to the consumer, which raises it

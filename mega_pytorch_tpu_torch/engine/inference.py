@@ -1,4 +1,5 @@
-"""Streaming inference (counterpart of ``mega_pytorch_tpu/engine/inference.py``).
+"""Streaming inference and evaluation (counterpart of
+``mega_pytorch_tpu/engine/inference.py``).
 
 ``serve_step`` is one MEGA lane's step: the one-lane case of the lockstep step
 (``batched_inference.make_lockstep_step``), so a single stream and L lockstep
@@ -10,13 +11,22 @@ lanes run one per-frame code path. Each step
   5. runs ``detect_key`` and keeps its carry (the memory pushes) only on an
      emitted frame.
 ``run_video`` schedules reset, global updates and emission over one video
-the way the lockstep engine schedules one lane. ``compute_on_dataset`` runs
-whole videos of a dataset through the lockstep engine, for MEGA, RDN, FGFA
-and DFF.
+the way the lockstep engine schedules one lane.
+
+``StreamingInferencer`` is the serial engine, one video at a time and one
+model method per call, as the JAX package's: it reads the f32 canvases of
+``EvalPreprocessor._prep`` (unpacked, so the canonical 7x7 stem runs) and
+owns all IO. Per video (frame_category 0) it fills the window with frame 0,
+reads ahead (all_frame_interval - key_frame_location - 1) frames, and for
+MEGA applies the video's initial global frames before the first detect;
+then one detect per frame. ``compute_on_dataset`` dispatches as the JAX
+one does: more than one lane of a streaming method goes to the lockstep
+engine, everything else (the base method included) to the serial engine.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Iterator, NamedTuple
 
 import numpy as np
@@ -140,23 +150,125 @@ def _extract(dets, size, orig_hw) -> dict:
     }
 
 
+class StreamingInferencer:
+    """The serial engine: a per-method stateful runner of the model's
+    streaming methods, one lane (the lane dimension is 1 throughout)."""
+
+    def __init__(self, model, method: str, preprocessor, dataset):
+        self.model, self.method = model, method
+        self.prep = preprocessor
+        self.dataset = dataset
+        self.device = next(model.parameters()).device
+        self.carry = None
+
+    def _batch(self, images: np.ndarray, sizes: np.ndarray):
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return dev(images), dev(sizes)
+
+    def _frame_batch(self, key: str, sample: dict):
+        return self._batch(sample[key], sample[key + "_size"])
+
+    def _load_extra_frame(self, pattern: str, frame_id: int):
+        p = self.prep._prep(self.dataset.load_frame(pattern, frame_id), flip=False)
+        return self._batch(p.image[None], p.size[None])
+
+    def _next_frame(self, sample: dict):
+        """The frame entering the window after frame 0: the sample's
+        reference frame (its frame + max_offset, clamped to the video)."""
+        return self._frame_batch("ref" if "ref" in sample else "ref_l", sample)
+
+    def _warmup(self, sample: dict):
+        """Yields the read-ahead frames of a video's frame 0: frames 1, 2,
+        ... clamped to the video's last."""
+        v = self.model.v
+        for i in range(1, v.all_frame_interval - v.key_frame_location):
+            yield self._load_extra_frame(sample["pattern"], min(i, sample["seg_len"] - 1))
+
+    @torch.inference_mode()
+    def step(self, sample: dict):
+        """One preprocessed sample → Detections (batch of 1) on the device."""
+        m = self.model
+        cur, sizes = self._frame_batch("cur", sample)
+        if self.method == "base":
+            return m.forward_test(cur, sizes)
+
+        if self.method == "dff":
+            if sample["is_key_frame"] or self.carry is None:
+                self.carry = m.make_key(cur, sizes)
+            return m.detect_non_key(self.carry, cur, sizes)
+
+        if self.method in ("fgfa", "rdn"):
+            if sample["frame_category"] == 0:
+                self.carry = m.init_carry(m.precompute(cur, sizes), sizes)
+                dets = None
+                for nxt, nsizes in self._warmup(sample):
+                    self.carry, dets = m.test_step(self.carry, nxt, nsizes)
+                return m.detect_key(self.carry) if dets is None else dets
+            nxt, nsizes = self._next_frame(sample)
+            self.carry, dets = m.test_step(self.carry, nxt, nsizes)
+            return dets
+
+        if self.method == "mega":
+            if sample["frame_category"] == 0:
+                self.carry = m.init_carry(m.precompute(cur, sizes), sizes)
+                for nxt, nsizes in self._warmup(sample):
+                    self.carry = m.push_carry(self.carry, m.precompute(nxt, nsizes), nsizes)
+            else:
+                nxt, nsizes = self._next_frame(sample)
+                self.carry = m.push_carry(self.carry, m.precompute(nxt, nsizes), nsizes)
+            # global updates: global_size on frame 0, one on every later frame
+            ref_g = sample.get("ref_g")
+            for i in range(0 if ref_g is None else len(ref_g)):
+                g, gsizes = self._batch(ref_g[i:i + 1], sample["ref_g_size"][i:i + 1])
+                self.carry = m.update_global(self.carry, g, gsizes)
+            self.carry, dets = m.detect_key(self.carry)
+            return dets
+
+        raise ValueError(self.method)
+
+
+STREAMING_METHODS = ("mega", "rdn", "fgfa", "dff")
+
+
 def compute_on_dataset(model, dataset, indices, preprocessor, method: str,
                        logger=None, log_period: int = 100, lanes: int = 1) -> dict:
-    """Streaming inference over ``indices`` (whole videos, ascending) →
-    {dataset_idx: prediction dict in original image coordinates}.
+    """Inference over ``indices`` (whole videos, ascending) → {dataset_idx:
+    prediction dict in original image coordinates}.
 
-    MEGA, RDN, FGFA and DFF run through the lockstep engine with ``lanes``
-    lanes; one lane is the serial protocol (its detections equal the JAX
-    serial engine's, which the JAX package's lockstep-versus-serial tests
-    pin). The single-frame ``base`` method's engine, the serial
-    ``StreamingInferencer``, is not ported (ROADMAP.md, Queue 1)."""
-    if method not in ("mega", "rdn", "fgfa", "dff"):
-        raise NotImplementedError(
-            f"streaming {method!r} is not ported yet (ROADMAP.md, Queue 1)")
-    if method != model.v.method:
-        raise ValueError(f"method {method!r} but the model is {model.v.method!r}")
-    from .batched_inference import compute_on_dataset_lockstep
+    ``lanes`` > 1 for a streaming method runs the lockstep engine (the
+    configuration its benchmarks measure); anything else, the base method
+    included, runs the serial ``StreamingInferencer``."""
+    from .batched_inference import _to_host, compute_on_dataset_lockstep
 
-    return compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
-                                       lanes=lanes, logger=logger,
-                                       log_period=log_period)
+    model_method = model.v.method if hasattr(model, "v") else "base"
+    if method != model_method:
+        raise ValueError(f"method {method!r} but the model is {model_method!r}")
+    if lanes > 1 and method in STREAMING_METHODS:
+        return compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
+                                           lanes=lanes, logger=logger,
+                                           log_period=log_period)
+    runner = StreamingInferencer(model, method, preprocessor, dataset)
+    results: dict = {}
+    total = 0.0
+    for n, idx in enumerate(indices):
+        sample = preprocessor(dataset[idx])
+        t0 = time.perf_counter()
+        dets = _to_host(runner.step(sample))  # the copy waits for the device
+        info = dataset.get_img_info(idx)
+        results[idx] = _extract(dets, sample["cur_size"][0], (info["height"], info["width"]))
+        total += time.perf_counter() - t0
+        if logger and (n + 1) % log_period == 0:
+            logger.info(f"inference {n + 1}/{len(indices)} ({total / (n + 1):.3f} s/img)")
+    return results
+
+
+def evaluate_predictions(dataset, predictions: dict, motion_iou_path: str | None = None,
+                         logger=None, box_only: bool = False) -> dict:
+    """VID AP50 (+ motion buckets), COCO/Cityscapes COCO-protocol AP, VOC 07
+    mAP, or class-agnostic proposal recall (box_only), by dataset family."""
+    from ..data.evaluation import evaluate
+
+    return evaluate(dataset, predictions, box_only=box_only,
+                    motion_iou_path=motion_iou_path, logger=logger)

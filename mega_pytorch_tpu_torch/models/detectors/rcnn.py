@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -56,6 +57,39 @@ class RCNNConfig:
     score_thresh: float = 0.001
     nms_thresh: float = 0.5
     detections_per_img: int = 300
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "RCNNConfig":
+        """The config tree's values (``config.defaults`` keys) of the fields
+        inference reads."""
+        if cfg.MODEL.RESNETS.TRANS_FUNC.endswith("WithGN"):
+            raise NotImplementedError("group-norm ResNets are not ported")
+        return cls(
+            depth="-".join(cfg.MODEL.BACKBONE.CONV_BODY.split("-")[:2]),
+            num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
+            compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+            stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
+            anchor_sizes=tuple(cfg.MODEL.RPN.ANCHOR_SIZES),
+            aspect_ratios=tuple(cfg.MODEL.RPN.ASPECT_RATIOS),
+            anchor_stride=cfg.MODEL.RPN.ANCHOR_STRIDE[0],
+            pre_nms_top_n_test=cfg.MODEL.RPN.PRE_NMS_TOP_N_TEST,
+            post_nms_top_n_test=cfg.MODEL.RPN.POST_NMS_TOP_N_TEST,
+            ref_pre_nms_top_n=cfg.MODEL.VID.RPN.REF_PRE_NMS_TOP_N,
+            ref_post_nms_top_n=cfg.MODEL.VID.RPN.REF_POST_NMS_TOP_N,
+            rpn_nms_thresh=cfg.MODEL.RPN.NMS_THRESH,
+            rpn_min_size=cfg.MODEL.RPN.MIN_SIZE,
+            reduce_channel=cfg.MODEL.VID.ROI_BOX_HEAD.REDUCE_CHANNEL,
+            mlp_dim=cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM,
+            pooler_resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
+            pooler_scale=cfg.MODEL.ROI_BOX_HEAD.POOLER_SCALES[0],
+            pooler_sampling_ratio=cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO,
+            res5_dilation=cfg.MODEL.RESNETS.RES5_DILATION,
+            bbox_reg_weights=tuple(cfg.MODEL.ROI_HEADS.BBOX_REG_WEIGHTS),
+            cls_agnostic_bbox_reg=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG,
+            score_thresh=cfg.MODEL.ROI_HEADS.SCORE_THRESH,
+            nms_thresh=cfg.MODEL.ROI_HEADS.NMS,
+            detections_per_img=cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+        )
 
     @property
     def num_anchors_per_cell(self) -> int:
@@ -165,3 +199,15 @@ class GeneralizedRCNN(RCNNBase):
 
     def forward_test(self, images: torch.Tensor, sizes: torch.Tensor) -> Detections:
         return self.detect_heads(self.backbone(images), sizes)
+
+
+def pad_gt(boxes: np.ndarray, labels: np.ndarray, max_gt: int = 32) -> dict:
+    """Pad one image's ground truth to static shapes (host-side helper)."""
+    g = min(len(boxes), max_gt)
+    out_boxes = np.zeros((max_gt, 4), np.float32)
+    out_labels = np.zeros((max_gt,), np.int32)
+    out_valid = np.zeros((max_gt,), bool)
+    out_boxes[:g] = boxes[:g]
+    out_labels[:g] = labels[:g]
+    out_valid[:g] = True
+    return {"boxes": out_boxes, "labels": out_labels, "valid": out_valid}

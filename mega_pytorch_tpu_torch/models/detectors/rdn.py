@@ -45,6 +45,29 @@ class VidConfig:
     global_size: int = 10
     global_res_stage: int = 1
 
+    @classmethod
+    def from_cfg(cls, cfg) -> "VidConfig":
+        """``MODEL.VID.*`` of the config tree, as the JAX ``VidConfig`` reads
+        it, for the fields inference uses."""
+        v = cfg.MODEL.VID
+        method = v.METHOD
+        node = {"rdn": v.RDN, "mega": v.MEGA, "fgfa": v.FGFA, "dff": v.DFF}.get(method)
+        att = v.ROI_BOX_HEAD.ATTENTION
+        kw = dict(method=method, base_stage=att.STAGE, advanced_stage=att.ADVANCED_STAGE,
+                  embed_dim=att.EMBED_DIM, groups=att.GROUP)
+        if method in ("rdn", "fgfa"):
+            kw.update(ref_num=node.REF_NUM)
+        if method in ("rdn", "fgfa", "mega"):
+            kw.update(all_frame_interval=node.ALL_FRAME_INTERVAL,
+                      key_frame_location=node.KEY_FRAME_LOCATION)
+        if method in ("rdn", "mega"):
+            kw.update(ratio=node.RATIO)
+        if method == "mega":
+            kw.update(memory_size=v.MEGA.MEMORY.SIZE, global_enable=v.MEGA.GLOBAL.ENABLE,
+                      global_size=v.MEGA.GLOBAL.SIZE,
+                      global_res_stage=v.MEGA.GLOBAL.RES_STAGE)
+        return cls(**kw)
+
 
 class RDNCarry(NamedTuple):
     """Window of L lanes; buffers hold the newest frame last."""

@@ -19,6 +19,8 @@ converts like any dense layer.
 
 from __future__ import annotations
 
+from typing import Iterator
+
 import numpy as np
 import torch
 
@@ -31,22 +33,34 @@ def _flatten(tree, prefix=()):
         if isinstance(val, dict) or hasattr(val, "items"):
             yield from _flatten(val, path)
         else:
-            yield path, np.asarray(val)
+            yield path, val
+
+
+def bridge_entries(params) -> Iterator[tuple[str, object, tuple | None]]:
+    """(port name, flax leaf, axes the leaf is transposed by or None) for
+    every leaf of a flax ``params`` tree; leaves are only read for their
+    rank, so shape structs serve too."""
+    for path, val in _flatten(params):
+        *mods, leaf = path
+        axes = None
+        if leaf == "kernel" and (not mods or mods[-1] not in _KEEP_KERNEL):
+            leaf = "weight"
+            ndim = len(np.shape(val))
+            if ndim == 4:
+                axes = (3, 2, 0, 1)
+            elif ndim == 2:
+                axes = (1, 0)
+            else:
+                raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
+        yield ".".join([*mods, leaf]), val, axes
 
 
 def state_dict_from_flax(params) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (flax ``params``) → {dotted name: tensor}."""
     out: dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(params):
-        *mods, leaf = path
-        if leaf == "kernel" and (not mods or mods[-1] not in _KEEP_KERNEL):
-            leaf = "weight"
-            if arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 2:
-                arr = arr.T
-            else:
-                raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
-        name = ".".join([*mods, leaf])
+    for name, val, axes in bridge_entries(params):
+        arr = np.asarray(val)
+        if axes is not None:
+            arr = arr.transpose(axes)
         out[name] = torch.tensor(arr, dtype=torch.float32)
     return out

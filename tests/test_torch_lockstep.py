@@ -8,8 +8,8 @@
   reference parity suite.
 * Lane l of the 3-lane step equals the one-lane step on lane l's inputs.
 * ``compute_on_dataset_lockstep`` against JAX ``compute_on_dataset(lanes=2)``
-  on the synthetic two-video dataset, through the JAX package's dataset and
-  preprocessor.
+  on the synthetic two-video dataset, each engine reading its own package's
+  dataset and ``EvalPreprocessor``.
 * The same for RDN (with its advanced stage), FGFA and DFF (key interval
   2), each against JAX ``compute_on_dataset(lanes=2)``.
 * The engine's host scheduling (partition, video split, lane feed; DFF's
@@ -37,6 +37,7 @@ from mega_pytorch_tpu.models.roi_heads.attention import (
     RelationAttention as JaxRelationAttention,
 )
 from mega_pytorch_tpu.utils.misc import jit_init
+from mega_pytorch_tpu_torch.data.loader import EvalPreprocessor as PortEvalPreprocessor
 from mega_pytorch_tpu_torch.engine import batched_inference as engine
 from mega_pytorch_tpu_torch.engine.inference import compute_on_dataset
 from mega_pytorch_tpu_torch.models.roi_heads.attention import RelationAttention
@@ -50,6 +51,7 @@ from torch_port_harness import (
     leaves,
     off_relu_corner,
     port_configs,
+    port_dataset,
     port_mega_from,
     port_model_from,
     tiny_mega,
@@ -231,7 +233,10 @@ def test_compute_on_dataset_lockstep_matches_jax(tiny_root):
     indices = list(range(len(ds)))
     want = jax_compute_on_dataset(model, params, ds, indices, prep, "mega", lanes=2)
     port = port_mega_from(params, c=ENGINE_C, v=v)
-    got = compute_on_dataset(port, ds, indices, prep, "mega", lanes=2)
+    port_ds = port_dataset(tiny_root, "VIDMEGADataset", max_offset=1, all_frame_interval=3,
+                           global_size=2, global_seed=0)
+    got = compute_on_dataset(port, port_ds, indices, PortEvalPreprocessor(**_prep_kwargs()),
+                             "mega", lanes=2)
     _assert_predictions_match(got, want, indices)
 
 
@@ -291,7 +296,10 @@ def test_compute_on_dataset_methods_match_jax(tiny_root, method):
     cls = {"rdn": detectors.GeneralizedRCNNRDN, "fgfa": detectors.GeneralizedRCNNFGFA,
            "dff": detectors.GeneralizedRCNNDFF}[method]
     port = port_model_from(cls, params, *port_configs(ENGINE_C, model.v))
-    got = compute_on_dataset(port, ds, indices, prep, method, lanes=2)
+    port_ds = port_dataset(tiny_root, type(ds).__name__,
+                           **(dict(key_interval=2) if method == "dff" else dict(max_offset=1)))
+    got = compute_on_dataset(port, port_ds, indices, PortEvalPreprocessor(**_prep_kwargs()),
+                             method, lanes=2)
     _assert_predictions_match(got, want, indices)
 
 

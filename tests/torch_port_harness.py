@@ -173,3 +173,32 @@ def match_detections(want, got, lanes):
 def port_mega_from(params, c=TINY_C, v=TINY_V):
     """The port's MEGA with the bridged weights, f32, on the CPU."""
     return port_model_from(port_mega.GeneralizedRCNNMEGA, params, *port_configs(c, v))
+
+
+def dataset_args(root):
+    """Constructor paths of the synthetic ``tiny_root`` video set (the
+    arguments of test_engine.py's ``_dataset``), for either package."""
+    return dict(image_set="VID_val", data_dir=str(root),
+                img_dir=str(root / "Data" / "VID"),
+                anno_path=str(root / "Annotations" / "VID"),
+                img_index=str(root / "ImageSets" / "val.txt"))
+
+
+def port_dataset(root, cls_name, **kw):
+    """The port's test-side dataset ``cls_name`` over ``tiny_root``."""
+    from mega_pytorch_tpu_torch.data.datasets import vid
+
+    return getattr(vid, cls_name)(**dataset_args(root), **kw)
+
+
+def ilsvrc_data_dir(root, tmp_path):
+    """A ``--data-dir`` whose ``ILSVRC2015`` tree is ``tiny_root`` (frames and
+    annotations linked, its index as ``VID_val_videos.txt`` and
+    ``VID_val_frames.txt``)."""
+    ilsvrc = tmp_path / "datasets" / "ILSVRC2015"
+    (ilsvrc / "ImageSets").mkdir(parents=True)
+    for sub in ("Data", "Annotations"):
+        (ilsvrc / sub).symlink_to(root / sub, target_is_directory=True)
+    for name in ("VID_val_videos.txt", "VID_val_frames.txt"):
+        (ilsvrc / "ImageSets" / name).write_text((root / "ImageSets" / "val.txt").read_text())
+    return tmp_path / "datasets"
