@@ -71,7 +71,23 @@ Phases, each printing its own lines:
      R-101 through the serial engine over the 10-frame first video (f32
      canvases, canonical stem, no kernel launch). Prints the host resize's
      ms a frame, the whole run's frames/s and ms/step, and the producer's
-     time a batch against the step.
+     time a batch against the step;
+  12. train kernels: modes "none" and "input" through their autograd
+     Functions at every shape of a training iteration (two lanes, one with
+     no valid ref): one launch, within 6e-3 of the tiled plain version,
+     zeros on the empty lane, gradients equal to autograd through the plain
+     version bit for bit; times at one lane;
+  13. train: MEGA R-101 training through ``tools/train_net.py``'s ``main``
+     (the ``mega_R_101`` preset: bf16 compute, f32 master weights, the
+     608x1024 canvas, one sample an iteration of cur + 2 local, 3 memory and
+     2 global frames) over a synthetic on-disk ILSVRC2015 train tree (VID
+     videos in the VID_train_15frames form and DET stills, two
+     orientations, frames drawn) for 14 iterations with a checkpoint at 7:
+     finite losses, every trainable group moved by the first step, frozen
+     parameters and buffers bit-identical, 3 "none" and 5 "input" launches
+     (and no other kernel) every iteration, and the checkpoint restoring
+     into a fresh model, optimizer and scheduler bit for bit. Prints ms an
+     iteration, samples/s, the producer's ms a sample and peak memory.
 Each phase prints its seconds. The last two lines are the kernel table and
 the device record as JSON. Any failed check raises, and the script exits
 non-zero.
@@ -125,6 +141,22 @@ EVAL_VIDEOS, EVAL_FRAME = 12, (720, 1280)
 # the final stage (37 window frames of 75 refs, 15 of them distilled)
 RDN_SHAPES = (("base stages", 300, 2775), ("advanced stage", 555, 2775),
               ("final stage", 300, 555))
+# MEGA R-101 training (phase 13): iterations, the checkpoint's iteration;
+# the synthetic train tree's videos (frame counts; 15 frames of each
+# indexed) and DET stills, at VID's 720p
+TRAIN_ITERS, TRAIN_CKPT = 14, 7
+TRAIN_VIDEOS, TRAIN_STILLS, TRAIN_FRAME = (40, 60, 30, 50, 45, 35), 4, (720, 1280)
+# the (N, M) of each attention call of a training iteration (ROI batch 128,
+# 75 refs a frame and 15 distilled; cur + 2 local, 3 memory, 2 global
+# frames; one global residual stage)
+TRAIN_ATTENTION = {
+    "flash_relation_attention": [("memory global", 225, 150),
+                                 ("key + local global", 353, 150),
+                                 ("global residual", 128, 150)],
+    "flash_relation_attention_bias": [("memory stage 0", 45, 225), ("memory stage 1", 45, 45),
+                                      ("local stage 0", 173, 450), ("local stage 1", 173, 90),
+                                      ("local stage 2", 128, 90)],
+}
 # kernel launches per engine step on each path (any lane count); every
 # kernel is listed, so that its 0 is measured too
 _NO_KERNEL = {"stem_pool_packed": 0, "flash_relation_attention": 0,
@@ -137,6 +169,9 @@ PER_STEP = {
     "fgfa": _NO_KERNEL,
     "dff": _NO_KERNEL,
 }
+# a training iteration: the canonical stem on RGB frames (no stem pool),
+# the position bias in plain f32 into mode "input", no "compute"
+PER_ITER_TRAIN = dict(_NO_KERNEL, flash_relation_attention=3, flash_relation_attention_bias=5)
 
 
 def _fail(msg: str):
@@ -1013,23 +1048,30 @@ def _check_s2d2_stem(stem, rs, kernels, smi):
         _fail("the s2d(2) stem in bf16 is not finite")
 
 
-def _write_vid_tree(root: Path, lengths, portrait, frame_hw, rs):
+def _write_vid_tree(root: Path, lengths, portrait, frame_hw, rs,
+                    index="VID_val_videos.txt", det=False, listed=None):
     """A synthetic ILSVRC2015 layout under ``root``: the index
-    ``ImageSets/VID_val_videos.txt`` (``folder 1 seg_id seg_len`` lines) and
-    one XML annotation a frame with 1-3 random boxes of the 30 wnids; video
-    v is portrait where ``portrait[v]``. No frame files: the dataset that
-    reads this tree synthesises its frames. Returns the synthetic motion-IoU
-    table (one value a box), as ``vid_eval.load_motion_ious`` reads it."""
+    ``ImageSets/{index}`` (VID: ``folder 1 seg_id seg_len`` lines of videos
+    ``val/v{v}``; ``det``: ``folder/frame id`` lines of stills ``train/d{v}``)
+    and one XML annotation a frame with 1-3 random boxes of the 30 wnids;
+    video (or still) v is portrait where ``portrait[v]``; with ``listed``,
+    only that many evenly spaced frames of each video are indexed and
+    annotated (the VID_train_15frames form). No frame files: the
+    dataset that reads this tree synthesises its frames. Returns the
+    synthetic motion-IoU table (one value a box), as
+    ``vid_eval.load_motion_ious`` reads it."""
     from mega_pytorch_tpu_torch.data.datasets.vid import VID_WNIDS
 
     ilsvrc = root / "ILSVRC2015"
-    (ilsvrc / "ImageSets").mkdir(parents=True)
+    (ilsvrc / "ImageSets").mkdir(parents=True, exist_ok=True)
+    kind = "DET" if det else "VID"
     lines, mious = [], []
     for v, n in enumerate(lengths):
         h, w = frame_hw[::-1] if portrait[v] else frame_hw
-        folder = f"val/v{v:03d}"
-        (ilsvrc / "Annotations" / "VID" / folder).mkdir(parents=True)
-        for f in range(n):
+        folder = f"train/d{v:03d}" if det else f"val/v{v:03d}"
+        (ilsvrc / "Annotations" / kind / folder).mkdir(parents=True)
+        frames = range(n) if listed is None else np.linspace(0, n - 1, listed).astype(int)
+        for f in frames:
             objs = []
             for _ in range(rs.randint(1, 4)):
                 x1, y1 = rs.randint(0, w - 40), rs.randint(0, h - 40)
@@ -1037,12 +1079,13 @@ def _write_vid_tree(root: Path, lengths, portrait, frame_hw, rs):
                 objs.append(f"<object><name>{VID_WNIDS[rs.randint(1, 31)]}</name><bndbox>"
                             f"<xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax>"
                             f"<ymax>{y2}</ymax></bndbox></object>")
-            (ilsvrc / "Annotations" / "VID" / folder / f"{f:06d}.xml").write_text(
+            (ilsvrc / "Annotations" / kind / folder / f"{f:06d}.xml").write_text(
                 f"<annotation><size><height>{h}</height><width>{w}</width></size>"
                 f"{''.join(objs)}</annotation>")
             mious.append(rs.rand(len(objs)))
-            lines.append(f"{folder} {len(lines) + 1} {f} {n}")
-    (ilsvrc / "ImageSets" / "VID_val_videos.txt").write_text("\n".join(lines) + "\n")
+            lines.append(f"{folder}/{f:06d} {len(lines) + 1}" if det
+                         else f"{folder} {len(lines) + 1} {f} {n}")
+    (ilsvrc / "ImageSets" / index).write_text("\n".join(lines) + "\n")
     return mious
 
 
@@ -1275,6 +1318,278 @@ def phase_position_bias_paths():
     return launches
 
 
+def phase_train_kernels():
+    """Modes "none" and "input" at every shape of a training iteration,
+    through their autograd Function: on two lanes, lane 0 with ragged valid refs
+    and lane 1 with none, the forward (one launch) against the tiled plain
+    version (atol ATOL_NONE, zeros on the empty lane) and the gradients
+    against ``torch.autograd.grad`` through the plain version on the same
+    operands, bit for bit (the Function's backward recomputes it); the
+    kernel, its plain version and the library call timed on lane 0.
+    Returns {kernel name: [entry per shape]}."""
+    import torch
+    from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(5)
+    out = {}
+    for name, cases in TRAIN_ATTENTION.items():
+        mode = "none" if name == "flash_relation_attention" else "input"
+        wrapper = getattr(ra, name)
+        entries = []
+        for label, n, m in cases:
+            x = _attention_inputs(gen, 2, n, m, dev)
+            x["valid"][1] = False
+            ops = [x["q"], x["k"], x["v"], x["uk"]]
+            if mode == "input":  # the log bias of the train path's f32 sinusoids
+                x["wb"] = x["wb"] * 0.0  # Wg's initial bias: pw at its relu floor for ~half
+                from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
+                ops.append(_stage_bias(pb, x))
+            ops = [t.clone().requires_grad_() for t in ops]
+            before = wrapper.launches
+            got = ra.RelationAttentionFunction.apply(
+                *ops[:4], ops[4] if mode == "input" else None, x["valid"], wrapper)
+            launched = wrapper.launches - before
+            cot = torch.randn(got.shape, generator=gen, device=dev)
+            grads = torch.autograd.grad(got, ops, cot)
+            bias = ops[4] if mode == "input" else None
+            plain = ra.reference_relation_attention(*ops[:4], bias, x["valid"])
+            want = torch.autograd.grad(plain, ops, cot)
+            same = all(g.dtype == t.dtype and torch.equal(g, w)
+                       for g, w, t in zip(grads, want, ops))
+            detached = [t.detach() for t in ops]
+            tiled = ra.reference_relation_attention_tiled(
+                *detached[:4], detached[4] if mode == "input" else None, x["valid"])
+            err = (got.detach() - tiled).abs().max().item()
+            empty = got[1].abs().max().item()
+            torch.cuda.synchronize()
+            lane = {k: v[:1].contiguous() for k, v in x.items() if torch.is_tensor(v)
+                    and v.dim() > 1}
+            lane.update(wk=x["wk"], wb=x["wb"])
+            lane_bias = detached[4][:1].contiguous() if mode == "input" else None
+            kern, plain_fn, _ = _attention_fns(ra, mode, lane, lane_bias)
+            ms, plain_ms = _time_pair(plain_fn, kern)
+            library_ms = _time_pair(_library_fn(lane, lane_bias), kern)[1]
+            bound = _attention_bound(mode, lane, lane_bias)
+            print(f"[train kernels] {mode} ({label}) N={n} M={m}, B=2 (lane 1 empty): "
+                  f"launches {launched}, max_abs_err {err:.3e} from the tiled plain version "
+                  f"(atol {ATOL_NONE}), empty lane {empty}; gradients == autograd through "
+                  f"the plain version, bit for bit: {same}; B=1 kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if launched != 1 or not err <= ATOL_NONE or empty != 0.0:
+                _fail(f"train kernels: {mode} ({label}) launches {launched}, err {err}, "
+                      f"empty lane {empty}")
+            if not same:
+                _fail(f"train kernels: {mode} ({label}) gradients differ from the plain "
+                      "version's")
+            entries.append(dict(stage=label, B=1, N=n, M=m, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, library_ms=library_ms, **bound))
+            del x, ops, got, grads, want, plain
+        out[name] = entries
+    return out
+
+
+def _snapshot(model, optimizer, scheduler):
+    """Clones of the model's state, the optimizer's per-parameter state and
+    the scheduler's position."""
+    import torch
+
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.detach().clone()
+        return {k: clone(v) for k, v in x.items()} if isinstance(x, dict) else x
+
+    return (clone(model.state_dict()), clone(optimizer.state_dict()["state"]),
+            scheduler.last_epoch)
+
+
+def _same_state(a, b) -> bool:
+    import torch
+
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_state(a[k], b[k]) for k in a)
+    return a == b
+
+
+def phase_train(smi):
+    """MEGA R-101 training at full width through ``tools/train_net.py``'s
+    ``main`` on the card: the ``mega_R_101`` preset (bf16 compute, f32 master weights from seed 0,
+    the 608x1024 canvas, MIN_SIZE_TRAIN 600 / MAX_SIZE_TRAIN 1000, one
+    sample an iteration, the preset's frame pools: cur + 2 local, 3 memory,
+    2 global), over a synthetic on-disk ILSVRC2015 train tree (VID videos in
+    the VID_train_15frames index form and DET stills of TRAIN_FRAME, two
+    orientations, frames drawn), TRAIN_ITERS iterations with a checkpoint at
+    TRAIN_CKPT.
+    Checks finite losses, every trainable group moved by the first step,
+    frozen parameters and buffers bit-identical at the end, the launches of
+    every iteration, and a fresh model, optimizer and scheduler restored
+    from the checkpoint equal to the live state there bit for bit. Returns
+    (launches, launches per iteration)."""
+    import functools
+    import tempfile
+
+    import torch
+    from mega_pytorch_tpu_torch.config import get_preset
+    from mega_pytorch_tpu_torch.data import loader, paths_catalog
+    from mega_pytorch_tpu_torch.data.datasets.vid import VIDMEGADataset
+    from mega_pytorch_tpu_torch.data.paths_catalog import dataset_args
+    from mega_pytorch_tpu_torch.engine import trainer
+    from mega_pytorch_tpu_torch.models import detectors
+    from mega_pytorch_tpu_torch.models.detectors import build_training_model
+    from mega_pytorch_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from mega_pytorch_tpu_torch.tools import train_net
+    from mega_pytorch_tpu_torch.tools.test_net import load_config
+    from mega_pytorch_tpu_torch.tools.train_bench import (
+        calibrate_frozen_bn,
+        calibration_frames,
+    )
+    from mega_pytorch_tpu_torch.utils.checkpoint import Checkpointer
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(13)
+    kernels = _kernels()
+    per_iter = dict(PER_ITER_TRAIN)
+    rec: dict = dict(step_ms=[], launches=[])
+    step, batches_fn = trainer.train_step, loader.train_batches
+    stats: dict = {}
+
+    def recording_step(model, optimizer, scheduler, *args, **kw):
+        if not rec["step_ms"]:
+            rec.update(model=model, optimizer=optimizer, scheduler=scheduler,
+                       initial=_snapshot(model, optimizer, scheduler)[0])
+        before = {k.__name__: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step(model, optimizer, scheduler, *args, **kw)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append({k.__name__: k.launches - before[k.__name__] for k in kernels})
+        if len(rec["step_ms"]) == 1:  # which parameters the first step moved
+            initial = rec["initial"]
+            rec["moved"] = {g["name"]: [not torch.equal(p.detach(), initial[n])
+                                        for p, n in zip(g["params"], _names(model, g))]
+                            for g in optimizer.param_groups}
+        if len(rec["step_ms"]) == TRAIN_CKPT:
+            rec["at_ckpt"] = _snapshot(model, optimizer, scheduler)
+        return losses
+
+    def _names(model, group):
+        by_id = {id(p): n for n, p in model.named_parameters()}
+        return [by_id[id(p)] for p in group["params"]]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        portrait = {"VID_train_15frames": [v in (1, 4) for v in range(len(TRAIN_VIDEOS))],
+                    "DET_train_30classes": [v == 2 for v in range(TRAIN_STILLS)]}
+        _write_vid_tree(root, TRAIN_VIDEOS, portrait["VID_train_15frames"], TRAIN_FRAME, rs,
+                        index="VID_train_15frames.txt", listed=15)
+        _write_vid_tree(root, [1] * TRAIN_STILLS, portrait["DET_train_30classes"],
+                        TRAIN_FRAME, rs, index="DET_train_30classes.txt", det=True)
+        frames_cls = _synthetic_frames(VIDMEGADataset, TRAIN_FRAME, rs)
+
+        def synthetic_dataset(name, method, is_train, data_dir, rng):
+            return frames_cls(**dataset_args(name, data_dir), is_train=is_train, rng=rng,
+                              portrait=portrait[name])
+
+        out_dir = root / "out"
+        args = ["--preset", "mega_R_101", "--data-dir", tmp, "--output-dir", str(out_dir),
+                "--seed", "0", "--device", "cuda", "opts", "SOLVER.MAX_ITER",
+                str(TRAIN_ITERS), "SOLVER.CHECKPOINT_PERIOD", str(TRAIN_CKPT)]
+        cfg = load_config(train_net.parse_args(args))
+        print(f"[train] {cfg.MODEL.BACKBONE.CONV_BODY} MEGA, {cfg.TPU.COMPUTE_DTYPE} compute, "
+              f"canvas {cfg.TPU.CANVAS_HEIGHT}x{cfg.TPU.CANVAS_WIDTH}, MIN/MAX_SIZE_TRAIN "
+              f"{cfg.INPUT.MIN_SIZE_TRAIN}/{cfg.INPUT.MAX_SIZE_TRAIN}, ROI batch "
+              f"{cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE}, frames a sample 1 + "
+              f"{cfg.MODEL.VID.MEGA.REF_NUM_LOCAL} local + {cfg.MODEL.VID.MEGA.REF_NUM_MEM} "
+              f"memory + {cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL} global; sets "
+              f"{cfg.DATASETS.TRAIN}: {len(TRAIN_VIDEOS)} videos of {min(TRAIN_VIDEOS)}-"
+              f"{max(TRAIN_VIDEOS)} frames and {TRAIN_STILLS} stills of {TRAIN_FRAME[0]}x"
+              f"{TRAIN_FRAME[1]}, two portrait videos and one portrait still")
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        # the FrozenBN statistics of the seeded model calibrated on two
+        # seeded frames of the training frames' kind, preprocessed as they are
+        calib = calibration_frames(cfg, TRAIN_FRAME, rs, dev)
+
+        def calibrated(*a, **kw):
+            return calibrate_frozen_bn(build(*a, **kw), calib)
+
+        build, catalog = detectors.build_training_model, paths_catalog.build_dataset
+        trainer.train_step = recording_step
+        loader.train_batches = functools.partial(batches_fn, stats=stats)
+        detectors.build_training_model = calibrated
+        paths_catalog.build_dataset = synthetic_dataset
+        try:
+            t0 = time.perf_counter()
+            record = train_net.main(args)
+            wall = time.perf_counter() - t0
+        finally:
+            trainer.train_step, loader.train_batches = step, batches_fn
+            detectors.build_training_model, paths_catalog.build_dataset = build, catalog
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+
+        iters = len(record["losses"])
+        for i, losses in enumerate(record["losses"]):
+            print(f"[train] iteration {i + 1}: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in losses.items()) + f"; {rec['step_ms'][i]:.1f} ms")
+        if iters != TRAIN_ITERS or not all(np.isfinite(v) for losses in record["losses"]
+                                           for v in losses.values()):
+            _fail(f"train: {iters} iterations, or a loss that is not finite")
+        bad = [(i, c) for i, c in enumerate(rec["launches"]) if c != per_iter]
+        print(f"[train] launches {launches}; per iteration {per_iter} expected, "
+              f"iterations that differ: {bad[:3]}")
+        if bad:
+            _fail("train: kernel launches per iteration differ from the expected")
+        moved = {g: (sum(m), len(m)) for g, m in rec["moved"].items()}
+        print(f"[train] parameters the first step moved, by group: {moved}")
+        if not all(n > 0 for n, _ in moved.values()):
+            _fail("train: a trainable parameter group did not move in the first step")
+        model, optimizer, scheduler = rec["model"], rec["optimizer"], rec["scheduler"]
+        params = dict(model.named_parameters())
+        final = model.state_dict()
+        frozen = [n for n in final if n not in params or not params[n].requires_grad]
+        kept = all(torch.equal(final[n], rec["initial"][n]) for n in frozen)
+        print(f"[train] {len(frozen)} frozen parameters and buffers (stem, layer1, "
+              f"FrozenBN) bit-identical after {iters} iterations: {kept}")
+        if not kept or not any(n.startswith("backbone.stem.") for n in frozen):
+            _fail("train: a frozen parameter or buffer changed")
+
+        payload = Checkpointer(str(out_dir)).load(
+            str(out_dir / f"model_{TRAIN_CKPT:07d}.pth"))
+        fresh = build_training_model(cfg, dev, torch.Generator(dev).manual_seed(1))
+        fresh_opt = make_optimizer(cfg, fresh)
+        fresh_sched = make_lr_scheduler(cfg, fresh_opt)
+        start = Checkpointer.restore(payload, fresh, fresh_opt, fresh_sched)
+        restored = _snapshot(fresh, fresh_opt, fresh_sched)
+        same = [_same_state(a, b) for a, b in zip(restored, rec["at_ckpt"])]
+        print(f"[train] checkpoint {TRAIN_CKPT} restored into a fresh model, optimizer and "
+              f"scheduler: iteration {start}; weights, momentum buffers, scheduler position "
+              f"equal the live state there bit for bit: {same}")
+        if start != TRAIN_CKPT or not all(same):
+            _fail("train: the checkpoint does not restore the saved state")
+        del fresh, fresh_opt, fresh_sched, payload, rec["at_ckpt"], rec["initial"]
+        del model, optimizer, scheduler, rec["model"], rec["optimizer"], rec["scheduler"]
+
+    steady = rec["step_ms"][2:]
+    ms = statistics.median(steady)
+    loop_s = sum(record["iter_s"])
+    feed = statistics.median(stats["feed_s"]) * 1e3
+    print(f"[train] iteration (synchronised, median of iterations 3..{iters}): {ms:.1f} ms; "
+          f"first {rec['step_ms'][0]:.1f} ms; whole run {iters} samples in {loop_s:.2f} s of "
+          f"the loop = {iters / loop_s:.3f} samples/s ({wall:.1f} s with set-up); producer "
+          f"{feed:.1f} ms a sample (8 frames read and preprocessed on one thread) against "
+          f"the {ms:.1f} ms iteration: share {feed / ms:.3f}; peak memory {peak:.0f} MiB; "
+          f"{smi}")
+    torch.cuda.empty_cache()
+    return launches, per_iter
+
+
 def main():
     if not (ROOT / "mega_pytorch_tpu_torch").is_dir():
         _fail("the mega_pytorch_tpu_torch package is not beside this script")
@@ -1304,6 +1619,8 @@ def main():
     base_launches = timed("base", phase_base, smi)
     eval_launches, eval_per_step, _, eval_base = timed("eval path", phase_eval_path, smi)
     path_launches = timed("position-bias paths", phase_position_bias_paths)
+    train_shapes = timed("train kernels", phase_train_kernels)
+    train_launches, train_per_iter = timed("train", phase_train, smi)
 
     source = {
         "stem_pool_packed": ("cuda", "mega_pytorch_tpu_torch/csrc/stem_pool.cu",
@@ -1323,21 +1640,26 @@ def main():
     }
     # launches: each path's run counts from 0 and is read just after it: the
     # MEGA lanes run (phase 6), the methods (phase 9), the base detector
-    # (phase 10), and the position-bias paths (phase 7) for the two kernels
-    # no model path reaches; launches_per_step is what every step of each
-    # lockstep run launched
+    # (phase 10), the eval path (phase 11), MEGA training (phase 13), and
+    # the position-bias paths (phase 7) for the kernel no model path
+    # reaches; launches_per_step is what every step (training: iteration)
+    # of each run launched
     by_path = {"mega": lane_launches, **{m: c for m, (c, _) in methods.items()},
                "base": base_launches, "eval path": eval_launches,
                "eval path base (serial)": eval_base,
-               "position-bias paths": path_launches}
+               "position-bias paths": path_launches, "train": train_launches}
     per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()},
-                        "eval path": eval_per_step}
+                        "eval path": eval_per_step, "train": train_per_iter}
     print(f"[result] launches per kernel: stream (1 lane) {launches}; by path {by_path}")
     print(f"[result] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     rows["stem_pool_packed"]["rdn_shape"] = rdn_stem
     pos = rows["flash_relation_attention_pos"]
     pos["rdn_shapes"] = rdn_pos
     pos["max_abs_err"] = max([pos["max_abs_err"]] + [e["max_abs_err"] for e in rdn_pos])
+    for kname, entries in train_shapes.items():
+        rows[kname]["train_shapes"] = entries
+        rows[kname]["max_abs_err"] = max([rows[kname]["max_abs_err"]]
+                                         + [e["max_abs_err"] for e in entries])
     table = []
     for kname, (route, src, replaces) in source.items():
         table.append(dict(

@@ -1,17 +1,19 @@
-"""ImageNet VID / DET datasets, test side (counterpart of
+"""ImageNet VID / DET datasets (counterpart of
 ``mega_pytorch_tpu/data/datasets/vid.py``).
 
   * txt index: DET lines ``folder frame_id``; VID lines
     ``folder 1 frame_seg_id frame_seg_len``.
   * 30-class wnid → label map; XML annotations, cached per image set in an
     npz of plain arrays under ``data_dir/cache`` (a file name of its own, so
-    the JAX package's pickled cache and this one never read each other).
-  * per-method streaming metadata for testing: test samples carry reference
-    frames, so the engines own all IO.
+    the JAX package's pickled cache and this one never read each other);
+    training drops images without a box.
+  * per-method reference-frame sampling for training (from the dataset's
+    ``rng``; a DET still serves as its own references) and streaming
+    metadata for testing: samples carry their reference frames, so the
+    engines own all IO.
 
 Frames are ``(H, W, 3)`` uint8 RGB numpy arrays from ``decode_rgb``, the one
-place that reads an image file (through PIL, imported there only). The train
-side (reference-frame sampling, empty-image filtering) is not ported.
+place that reads an image file (through PIL, imported there only).
 """
 
 from __future__ import annotations
@@ -100,16 +102,20 @@ def _load_annos(path: str) -> list:
 
 
 class VIDDataset:
-    """Core single-frame dataset ('base' method), test side."""
+    """Core single-frame dataset ('base' method). For training, images
+    without a box are dropped and ``rng`` (required) draws the reference
+    frames."""
 
     def __init__(self, image_set: str, data_dir: str, img_dir: str, anno_path: str,
-                 img_index: str, is_train: bool = False, use_cache: bool = True):
-        if is_train:
-            raise NotImplementedError("the datasets' train side is not ported")
+                 img_index: str, is_train: bool = False, use_cache: bool = True,
+                 rng: np.random.RandomState | None = None):
         self.image_set = image_set
         self.det_vid = image_set.split("_")[0]
         self.data_dir = data_dir
         self.is_train = is_train
+        if is_train and rng is None:
+            raise ValueError("a training dataset draws its references from rng: pass one")
+        self.rng = rng
         self._img_path = os.path.join(img_dir, "%s.JPEG")
         self._anno_path = os.path.join(anno_path, "%s.xml")
 
@@ -126,6 +132,21 @@ class VIDDataset:
             self.frame_seg_id = [int(x[2]) for x in lines]
             self.frame_seg_len = [int(x[3]) for x in lines]
         self.annos = self._load_annos(use_cache)
+        if self.is_train:
+            keep = [len(a["boxes"]) > 0 for a in self.annos]
+            self._filter(keep)
+            self.annos = [a for a, k in zip(self.annos, keep) if k]
+
+    def _filter(self, keep):
+        def sel(xs):
+            return [x for x, k in zip(xs, keep) if k]
+
+        self.image_set_index = sel(self.image_set_index)
+        self.frame_id = sel(self.frame_id)
+        if self.is_video:
+            self.pattern = sel(self.pattern)
+            self.frame_seg_id = sel(self.frame_seg_id)
+            self.frame_seg_len = sel(self.frame_seg_len)
 
     def _cache_file(self) -> str:
         cache_dir = os.path.join(self.data_dir, "cache")
@@ -175,19 +196,39 @@ class VIDDataset:
         """base method: one frame + its ground truth."""
         return {"cur": self.load_image(idx), "gt": self.annos[idx], "idx": idx}
 
+    # video helpers of the training samples
+    def _ref_frame(self, idx: int, offset: int) -> np.ndarray:
+        ref_id = min(max(self.frame_seg_id[idx] + offset, 0), self.frame_seg_len[idx] - 1)
+        return self.load_frame(self.pattern[idx], ref_id)
+
+    def _sample_offsets(self, lo: int, hi: int, n: int) -> np.ndarray:
+        return self.rng.choice(hi - lo + 1, n, replace=False) + lo
+
+    def _train_refs(self, idx: int, lo: int, hi: int, n: int):
+        """(cur, n reference frames at distinct offsets in [lo, hi]); a
+        still image (DET) serves as its own references."""
+        cur = self.load_image(idx)
+        if not self.is_video:
+            return cur, [cur.copy() for _ in range(n)]
+        return cur, [self._ref_frame(idx, int(o)) for o in self._sample_offsets(lo, hi, n)]
+
     @staticmethod
     def label_name(class_id: int) -> str:
         return VID_CLASSES[class_id]
 
 
 class VIDRDNDataset(VIDDataset):
-    """Test samples feed the frame at +max_offset (the next window entry)."""
+    """Training samples draw ``ref_num`` refs from [min_offset, max_offset];
+    test samples feed the frame at +max_offset (the next window entry)."""
 
     def __init__(self, *args, min_offset=-18, max_offset=18, ref_num=2, **kw):
         super().__init__(*args, **kw)
         self.min_offset, self.max_offset, self.ref_num = min_offset, max_offset, ref_num
 
     def __getitem__(self, idx: int) -> dict:
+        if self.is_train:
+            cur, refs = self._train_refs(idx, self.min_offset, self.max_offset, self.ref_num)
+            return {"cur": cur, "ref": refs, "gt": self.annos[idx], "idx": idx}
         frame_id = self._frame_id(idx)
         ref_id = min(self.frame_seg_len[idx] - 1, frame_id + self.max_offset)
         return {
@@ -203,8 +244,12 @@ class VIDRDNDataset(VIDDataset):
 
 
 class VIDMEGADataset(VIDDataset):
-    """Test samples add a per-video shuffled global-frame schedule (10 on
-    frame 0, then 1 a frame), seeded by ``global_seed``."""
+    """Training samples draw the three frame pools: ``ref_num_local`` local
+    refs from [min_offset, max_offset] around cur, ``ref_num_mem`` memory
+    frames from the same offsets around ``all_frame_interval`` frames
+    earlier, and ``ref_num_global`` distinct frames of the whole video. Test
+    samples add a per-video shuffled global-frame schedule (10 on frame 0,
+    then 1 a frame), seeded by ``global_seed``."""
 
     def __init__(self, *args, min_offset=-12, max_offset=12, ref_num_local=2,
                  ref_num_mem=3, ref_num_global=2, all_frame_interval=25,
@@ -218,7 +263,8 @@ class VIDMEGADataset(VIDDataset):
         self.global_size = global_size
         self.global_enable = global_enable
         self.memory_enable = memory_enable
-
+        if self.is_train:
+            return
         g_rng = np.random.RandomState(global_seed)
         self.start_index, self.start_id, self.shuffled_index = [], [], {}
         for i in range(len(self.image_set_index)):
@@ -245,7 +291,30 @@ class VIDMEGADataset(VIDDataset):
             for j in range(size)
         ]
 
+    def _get_train(self, idx: int) -> dict:
+        lo, hi = self.min_offset, self.max_offset
+        cur, ref_l = self._train_refs(idx, lo, hi, self.ref_num_local)
+        ref_m, ref_g = [], []
+        if not self.is_video:
+            ref_m = [cur.copy() for _ in range(self.ref_num_mem)] if self.memory_enable else []
+            ref_g = ([cur.copy() for _ in range(self.ref_num_global)]
+                     if self.global_enable else [])
+        else:
+            seg_len, pattern = self.frame_seg_len[idx], self.pattern[idx]
+            if self.memory_enable:
+                center = max(self.frame_seg_id[idx] - self.all_frame_interval, 0)
+                for o in self._sample_offsets(lo, hi, self.ref_num_mem):
+                    ref_m.append(self.load_frame(pattern, min(max(center + int(o), 0),
+                                                              seg_len - 1)))
+            if self.global_enable:
+                ids = self.rng.choice(seg_len, self.ref_num_global, replace=False)
+                ref_g = [self.load_frame(pattern, int(r)) for r in ids]
+        return {"cur": cur, "ref_l": ref_l, "ref_m": ref_m, "ref_g": ref_g,
+                "gt": self.annos[idx], "idx": idx}
+
     def __getitem__(self, idx: int) -> dict:
+        if self.is_train:
+            return self._get_train(idx)
         frame_id = self._frame_id(idx)
         ref_id = min(self.frame_seg_len[idx] - 1, frame_id + self.max_offset)
         return {
@@ -271,7 +340,8 @@ class VIDFGFADataset(VIDRDNDataset):
 
 
 class VIDDFFDataset(VIDDataset):
-    """A key every ``key_interval``-th frame."""
+    """Training samples draw one ref from [min_offset, max_offset]; at test
+    a key every ``key_interval``-th frame."""
 
     def __init__(self, *args, min_offset=-9, max_offset=0, key_interval=10, **kw):
         super().__init__(*args, **kw)
@@ -279,6 +349,9 @@ class VIDDFFDataset(VIDDataset):
         self.key_interval = key_interval
 
     def __getitem__(self, idx: int) -> dict:
+        if self.is_train:
+            cur, refs = self._train_refs(idx, self.min_offset, self.max_offset, 1)
+            return {"cur": cur, "ref": refs, "gt": self.annos[idx], "idx": idx}
         frame_id = self._frame_id(idx)
         return {
             "cur": self.load_image(idx),

@@ -4,8 +4,9 @@ the stride on the first 1x1 (``stride_in_1x1``), module names equal to the
 flax scopes (``layer3.22.conv2``, ``stem.conv1``).
 
 Public functions take and return NHWC; inside, convolutions run on NCHW
-views of channels_last memory. Frozen stages need no stop-gradient: the port
-runs inference only.
+views of channels_last memory. In training, the stages below
+``FREEZE_CONV_BODY_AT`` are frozen by ``requires_grad_(False)`` (``freeze_``),
+which gives what the JAX package's stop_gradient after them gives.
 """
 
 from __future__ import annotations
@@ -203,6 +204,13 @@ class ResNetC4(nn.Module):
         y = self.stem(x)
         y = self.layer3(self.layer2(self.layer1(y)))
         return nhwc(y)
+
+    def freeze_(self, freeze_at: int) -> None:
+        """Training: the stem (``freeze_at`` >= 1) and each ``layer{i}`` with
+        ``freeze_at`` >= i + 1 take no gradient (``FREEZE_CONV_BODY_AT``)."""
+        stages = [self.stem] + [getattr(self, f"layer{i}") for i in (1, 2, 3)]
+        for module in stages[:freeze_at]:
+            module.requires_grad_(False)
 
 
 class ResNetRes5Head(nn.Module):

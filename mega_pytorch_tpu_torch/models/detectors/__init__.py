@@ -10,7 +10,7 @@ from ...config import get_preset
 from .dff import GeneralizedRCNNDFF
 from .fgfa import GeneralizedRCNNFGFA
 from .mega import GeneralizedRCNNMEGA, build_mega_flagship
-from .rcnn import GeneralizedRCNN, RCNNConfig, seeded_flagship
+from .rcnn import GeneralizedRCNN, RCNNConfig, seeded_flagship, seeded_training
 from .rdn import GeneralizedRCNNRDN, VidConfig
 
 METHODS = ("base", "rdn", "fgfa", "dff", "mega")
@@ -46,6 +46,13 @@ def build_detection_model(cfg, device="cuda", generator: torch.Generator | None 
     return seeded_flagship(detection_model(cfg, device), device, generator, lanes)
 
 
+def build_training_model(cfg, device="cuda", generator: torch.Generator | None = None):
+    """cfg (ConfigNode) → the detector on ``device`` for training: weights
+    drawn from ``generator`` (seed 0 if None) and kept in f32, the backbone
+    frozen below ``MODEL.BACKBONE.FREEZE_CONV_BODY_AT``, in train mode."""
+    return seeded_training(detection_model(cfg, device), device, generator)
+
+
 def build_method_flagship(method: str, canvas_h: int, canvas_w: int, device="cuda",
                           generator: torch.Generator | None = None, lanes: int = 4):
     """``build_detection_model`` of the method's R-101 preset, bf16, each
@@ -79,6 +86,7 @@ def build_method_flagship(method: str, canvas_h: int, canvas_w: int, device="cud
 
 
 __all__ = ["METHODS", "build_detection_model", "build_mega_flagship",
-           "build_method_flagship", "detection_model", "GeneralizedRCNN",
+           "build_method_flagship", "build_training_model", "detection_model",
+           "GeneralizedRCNN",
            "GeneralizedRCNNDFF", "GeneralizedRCNNFGFA", "GeneralizedRCNNRDN",
            "GeneralizedRCNNMEGA", "RCNNConfig", "VidConfig"]

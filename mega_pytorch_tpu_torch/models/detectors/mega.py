@@ -1,6 +1,7 @@
-"""MEGA streaming detector, inference (counterpart of
+"""MEGA streaming detector (counterpart of
 ``mega_pytorch_tpu/models/detectors/mega.py`` and the streaming parts of
-``rdn.py``/``rcnn.py``).
+``rdn.py``/``rcnn.py``); ``forward_train`` takes one training sample's
+local, memory and global frame pools.
 
 Every method works on L video lanes at once (the JAX package vmaps its
 per-lane methods; here the lane is a leading dimension of every tensor).
@@ -134,6 +135,38 @@ class GeneralizedRCNNMEGA(WindowedRCNN):
         class_logits, box_reg = self.predictor(x)
         return carry, self._postprocess(class_logits, box_reg, key_rois, key_valid,
                                         carry.sizes[:, k])
+
+    # -- training -------------------------------------------------------------
+    def forward_train(self, batch: dict, gt: dict,
+                      generator: torch.Generator | None = None) -> dict:
+        """One sample's three frame pools, batch["local"] (cur first, then
+        the local refs), batch["memory"] and batch["global"], each a pair of
+        normalized RGB frames (F, H, W, 3) and sizes (F, 2), and cur's padded
+        ground truth (leading dim 1) → the four losses.
+
+        The key RPN (losses and 300 training proposals, 128 of them
+        subsampled) runs on cur; every frame gives its 75 ref proposals from
+        the detached RPN outputs; the memory pool runs without gradient
+        (the JAX package's stop_gradient on its maps)."""
+        imgs_l, sizes_l = batch["local"]
+        imgs_m, sizes_m = batch["memory"]
+        imgs_g, sizes_g = batch["global"]
+        feats_l = self.backbone(imgs_l)
+        feats_g = self.backbone(imgs_g)
+        with torch.no_grad():
+            feats_m = self.backbone(imgs_m)
+            m_props = self._ref_proposals(feats_m, sizes_m)
+            g_props = self._ref_proposals(feats_g, sizes_g)
+        objectness, deltas = self.rpn(feats_l)
+        anchors = self._anchors(feats_l.shape[1], feats_l.shape[2], feats_l.device)
+        losses, rois = self._train_rois(objectness[:1], deltas[:1], anchors, sizes_l[:1],
+                                        gt, generator)
+        l_props = rpn_postprocess(objectness.detach(), deltas.detach(), anchors, sizes_l,
+                                  self._ref_sizes())
+        x = self.extractor.extract_train(
+            feats_l, feats_m, feats_g, rois.boxes[0], l_props.boxes, l_props.valid,
+            m_props.boxes, m_props.valid, g_props.boxes, g_props.valid)
+        return dict(losses, **self._box_losses(x, rois))
 
     def test_step(self, carry: MEGACarry, pairs: torch.Tensor, sizes: torch.Tensor):
         """Steady state: push each pair's local frame, apply its global frame,

@@ -22,7 +22,7 @@ import torch
 
 from ..roi_heads.inference import Detections
 from ..roi_heads.vid_extractors import RDNFeatureExtractor
-from ..rpn.rpn import shared_ref_key_postprocess
+from ..rpn.rpn import rpn_postprocess, shared_ref_key_postprocess
 from .rcnn import RCNNBase, RCNNConfig
 
 
@@ -116,6 +116,14 @@ class WindowedRCNN(RCNNBase):
             "key_rois": key_props.boxes, "key_valid": key_props.valid,
             "key_feats": key_feats,
         }
+
+    def _ref_proposals(self, feats: torch.Tensor, sizes: torch.Tensor):
+        """Training: the ref proposals (``ref_post_nms_top_n`` of each frame)
+        of C4 maps (F, h, w, 1024), from the detached RPN outputs."""
+        objectness, deltas = self.rpn(feats)
+        anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
+        return rpn_postprocess(objectness.detach(), deltas.detach(), anchors, sizes,
+                               self._ref_sizes())
 
     def precompute(self, images: torch.Tensor, sizes: torch.Tensor) -> dict:
         """Normalized frames (L, H, W, C), one per lane → their window entries."""

@@ -1,4 +1,4 @@
-"""Relation attention for MEGA and RDN, inference (counterpart of
+"""Relation attention for MEGA and RDN (counterpart of
 ``mega_pytorch_tpu/models/roi_heads/attention.py``, ``RelationAttention``).
 
 logits = (q.k [+ u.k]) / sqrt(d) [+ log position weight], masked over
@@ -9,9 +9,12 @@ to ``feat`` columns. Every operand has a leading
 lane dimension, which the kernels take as their batch (the JAX module runs
 per lane under vmap). On a CUDA tensor every call launches the flash kernel:
 mode "compute" when ``pos_rois`` is given, mode "input" with the log bias of
-a ``pos_emb`` (log(relu(pos_emb . Wg + b) + 1e-6), a plain product), mode
-"none" otherwise, whatever the number of refs. On a CPU tensor the einsum
-path runs with the bf16-sinusoid position bias, as the JAX module does there.
+a ``pos_emb`` (log(relu(pos_emb . Wg + b) + 1e-6), a plain product) or
+under ``precise_bias``, mode "none" otherwise, whatever the number of refs;
+where an operand needs a gradient, modes "none" and "input" launch through
+their autograd Function. On a CPU tensor the einsum path runs with the
+bf16-sinusoid position bias (f32 under ``precise_bias``), as the JAX module
+does there.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ...ops.kernels.position_bias import (
     reference_position_bias,
 )
 from ...ops.kernels.relation_attention import (
+    RelationAttentionFunction,
     flash_relation_attention,
     flash_relation_attention_bias,
     flash_relation_attention_pos,
@@ -87,10 +91,15 @@ class RelationAttention(nn.Module):
         self.Wv_kernel.data = self.Wv_kernel.data.to(self.dtype)
 
     def forward(self, roi_feat, ref_feat, ref_valid=None, pos_rois=None,
-                pos_emb=None):
+                pos_emb=None, precise_bias=False):
         """Lanes lead every operand: roi_feat (L, N, D), ref_feat (L, M, D),
         ref_valid (L, M) bool, and either pos_rois = (cur_rois (L, N, 4),
-        ref_rois (L, M, 4)) or pos_emb (L, N, M, E) → (L, N, D) f32."""
+        ref_rois (L, M, 4)) or pos_emb (L, N, M, E) → (L, N, D) f32.
+
+        precise_bias (training): the log bias of ``pos_rois`` in plain torch
+        with f32 sinusoids, differentiable into Wg, and on CUDA mode "input"
+        (never "compute"). The bf16 sinusoids of inference corrupt the
+        bias's gradient at the relu boundary while leaving its values."""
         g = self.groups
         d = self.feat_dim // g
         dt = self.dtype
@@ -112,6 +121,10 @@ class RelationAttention(nn.Module):
                 raise ValueError("use_position needs pos_rois or pos_emb")
             pw = (pos_emb.float() @ self.Wg.kernel.float() + self.Wg.bias.float())
             log_bias = torch.log(pw.clamp_min(0.0) + 1e-6).permute(0, 3, 1, 2)
+        elif self.use_position and precise_bias:
+            log_bias = reference_position_bias(
+                pos_rois[0], pos_rois[1], self.Wg.kernel, self.Wg.bias, self.embed_dim,
+                sin_dtype=torch.float32)
 
         if roi_feat.device.type == "cuda":
             def bf16(x):
@@ -119,7 +132,17 @@ class RelationAttention(nn.Module):
 
             args = (bf16(q), bf16(k), bf16(v), uk.contiguous())
             valid = ref_valid.contiguous()
-            if log_bias is not None:
+            operands = args if log_bias is None else (*args, log_bias)
+            if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+                # the kernels' forward, the plain version's backward
+                if log_bias is None and self.use_position:
+                    raise NotImplementedError(
+                        'mode "compute" has no gradient: pass precise_bias=True')
+                out = RelationAttentionFunction.apply(
+                    *args, None if log_bias is None else log_bias.contiguous(), valid,
+                    flash_relation_attention if log_bias is None
+                    else flash_relation_attention_bias)
+            elif log_bias is not None:
                 out = flash_relation_attention_bias(*args, log_bias.contiguous(), valid)
             elif self.use_position:
                 out = flash_relation_attention_pos(

@@ -1,10 +1,10 @@
-"""MEGA feature extractor, streaming inference (counterpart of
+"""MEGA feature extractor (counterpart of
 ``mega_pytorch_tpu/models/roi_heads/mega_extractor.py``): dilated res5 +
 1x1 reduce, ROIAlign + fc0, the merged global enhancement, the local/memory
 attention stages with the long-range-memory pushes, and the global residual
-stages. Every tensor has a leading lane dimension (the JAX module runs per
-lane under vmap), so ROI sets concatenate along dim 1. ``extract_train`` is
-not ported."""
+stages (streaming, ``extract_test``); the three training frame pools
+(``extract_train``). Every tensor has a leading lane dimension (the JAX
+module runs per lane under vmap), so ROI sets concatenate along dim 1."""
 
 from __future__ import annotations
 
@@ -109,13 +109,86 @@ class MEGAFeatureExtractor(Res5Pooler):
     def update_lm(self, feats, g_feats, g_valid, index: int = 0):
         return feats + self.g_attn(index)(feats, g_feats, g_valid)
 
-    def _local_attend(self, i, cur_rois, cur_feats, refs: RefSet, last: bool):
+    def _local_attend(self, i, cur_rois, cur_feats, refs: RefSet, last: bool,
+                      precise: bool = False):
+        """One local/memory stage: attention, the residual and, unless
+        ``last``, the next stage's fc; ``precise`` on the train paths (the
+        f32-sinusoid bias, see ``RelationAttention``)."""
         att = self.l_attn(i)(cur_feats, refs.feats, refs.valid,
-                             pos_rois=(cur_rois, refs.rois))
+                             pos_rois=(cur_rois, refs.rois), precise_bias=precise)
         feats = cur_feats + att
         if not last:
             feats = torch.relu(self.l_fcs(i + 1)(feats).float())
         return feats
+
+    # -- training -------------------------------------------------------------
+    def extract_train(self, maps_l, maps_m, maps_g, key_rois, l_rois, l_valid,
+                      m_rois, m_valid, g_rois, g_valid):
+        """One training sample. C4 maps of the three frame pools (F, h, w,
+        1024), cur first in ``maps_l``; the subsampled key ROIs of cur (N, 4);
+        each pool's ref proposals (F, base_num, 4) with validity (F,
+        base_num) → (1, N, D) f32 features of the key ROIs.
+
+        The global pool is differentiable; the memory pool (its features,
+        global enhancement and stage-wise self-enhancement, whose
+        intermediate refs become the per-stage memories) runs without
+        gradient; the local stack attends to [local refs + memory i] at
+        stage i. Every position-bias stage takes ``precise_bias``."""
+        def flat(x):  # (F, R, ...) → (1, F * R, ...): one lane
+            return x.reshape(1, -1, *x.shape[2:])
+
+        g_feats = g_val = None
+        if self.global_enable:
+            g_feats = self.fc0(flat(self.pool_flat(self.enhance_features(maps_g), g_rois)))
+            g_val = flat(g_valid)
+
+        with torch.no_grad():
+            fm = m_rois.shape[0]
+            x_m = self.fc0(flat(self.pool_flat(self.enhance_features(maps_m), m_rois)))
+            if self.global_enable:
+                x_m = self.update_lm(x_m, g_feats, g_val)
+            m_rois_flat, m_val_flat = flat(m_rois), flat(m_valid)
+            m_rois_dis = self._distill(m_rois_flat, fm)
+            m_val_dis = self._distill(m_val_flat, fm)
+            mem = [RefSet(m_rois_flat, x_m, m_val_flat)]
+            feats = self._distill(x_m, fm)
+            for i in range(self.stage - 1):
+                feats = self._local_attend(i, m_rois_dis, feats, mem[i], last=False,
+                                           precise=True)
+                mem.append(RefSet(m_rois_dis, feats, m_val_dis))
+
+        fl = l_rois.shape[0]
+        enhanced_l = self.enhance_features(maps_l)
+        x_key = self.fc0(self.pool_flat(enhanced_l[:1], key_rois[None]))
+        x_l = self.fc0(flat(self.pool_flat(enhanced_l, l_rois)))
+        n_key = key_rois.shape[0]
+        if self.global_enable:
+            # one merged call: update_lm is per-row
+            both = self.update_lm(torch.cat([x_key, x_l], 1), g_feats, g_val)
+            x_key, x_l = both[:, :n_key], both[:, n_key:]
+        l_rois_flat, l_val_flat = flat(l_rois), flat(l_valid)
+        rois_dis = self._distill(l_rois_flat, fl)
+        val_dis = self._distill(l_val_flat, fl)
+        cur_rois_full = torch.cat([key_rois[None], rois_dis], 1)
+        feats = torch.cat([x_key, self._distill(x_l, fl)], 1)
+
+        for i in range(self.stage):
+            last = i == self.stage - 1
+            cur_rois = cur_rois_full
+            if i == 0:
+                refs = RefSet(l_rois_flat, x_l, l_val_flat)
+            else:
+                refs = RefSet(rois_dis, feats[:, n_key:], val_dis)
+                if last:
+                    cur_rois, feats = key_rois[None], feats[:, :n_key]
+            feats = self._local_attend(i, cur_rois, feats, cat_refs(refs, mem[i]),
+                                       last=last, precise=True)
+
+        x = feats
+        if self.global_enable:
+            for i in range(self.global_res_stage):
+                x = self.update_lm(x, g_feats, g_val, index=i + 1)
+        return x
 
     def precompute_ref(self, c4: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
         """(L, H, W, 1024) C4 maps, one frame per lane → pooled fc0 features

@@ -1,9 +1,11 @@
 """Anchor generation (copied numpy from ``mega_pytorch_tpu/models/rpn/anchors.py``):
-Detectron cell anchors (ratio-major, then size) and (y, x, anchor) grid order."""
+Detectron cell anchors (ratio-major, then size) and (y, x, anchor) grid order,
+and the anchors' visibility in an image (training)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _whctrs(anchor: np.ndarray):
@@ -59,3 +61,15 @@ def grid_anchors(
     shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()], axis=1)
     anchors = shifts[:, None, :] + cell_anchors[None, :, :]
     return anchors.reshape(-1, 4)
+
+
+def anchor_visibility(anchors, im_height, im_width, straddle_thresh: float = 0):
+    """True for anchors (N, 4) within ``straddle_thresh`` of the image;
+    ``im_height``/``im_width`` are scalars or tensors that broadcast against
+    anchors[:, 0] (per-image sizes as (B, 1) give (B, N)). A negative
+    threshold keeps every anchor."""
+    if straddle_thresh < 0:
+        return torch.ones(anchors.shape[0], dtype=torch.bool, device=anchors.device)
+    return ((anchors[:, 0] >= -straddle_thresh) & (anchors[:, 1] >= -straddle_thresh)
+            & (anchors[:, 2] < im_width + straddle_thresh)
+            & (anchors[:, 3] < im_height + straddle_thresh))

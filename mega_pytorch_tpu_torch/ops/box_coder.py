@@ -1,6 +1,7 @@
-"""Detectron box decoding (counterpart of ``mega_pytorch_tpu/ops/box_coder.py``):
-+1 widths, per-coordinate weights, size deltas clipped at log(1000/16), and
-the "-1" on decoded x2/y2. Inference only: ``encode`` is not ported."""
+"""Detectron box encoding and decoding (counterpart of
+``mega_pytorch_tpu/ops/box_coder.py``): +1 widths, per-coordinate weights,
+size deltas clipped at log(1000/16) when decoded, and the "-1" on decoded
+x2/y2."""
 
 from __future__ import annotations
 
@@ -15,6 +16,30 @@ class BoxCoder:
     def __init__(self, weights, bbox_xform_clip: float = BBOX_XFORM_CLIP):
         self.weights = weights
         self.bbox_xform_clip = bbox_xform_clip
+
+    def encode(self, reference_boxes: torch.Tensor, proposals: torch.Tensor) -> torch.Tensor:
+        """Regression targets mapping ``proposals`` onto ``reference_boxes``,
+        both (..., 4) xyxy → (..., 4) deltas. Widths and heights are floored
+        at 1e-6, so padded zero boxes give finite targets."""
+        ex_w = proposals[..., 2] - proposals[..., 0] + 1.0
+        ex_h = proposals[..., 3] - proposals[..., 1] + 1.0
+        ex_cx = proposals[..., 0] + 0.5 * ex_w
+        ex_cy = proposals[..., 1] + 0.5 * ex_h
+
+        gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + 1.0
+        gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + 1.0
+        gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+        gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+
+        wx, wy, ww, wh = self.weights
+        ex_w, ex_h = ex_w.clamp_min(1e-6), ex_h.clamp_min(1e-6)
+        gt_w, gt_h = gt_w.clamp_min(1e-6), gt_h.clamp_min(1e-6)
+        return torch.stack([
+            wx * (gt_cx - ex_cx) / ex_w,
+            wy * (gt_cy - ex_cy) / ex_h,
+            ww * torch.log(gt_w / ex_w),
+            wh * torch.log(gt_h / ex_h),
+        ], dim=-1)
 
     def decode(self, rel_codes: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """rel_codes (..., N, 4K), boxes (..., N, 4) → (..., N, 4K) xyxy."""

@@ -20,6 +20,11 @@ Layouts are the JAX package's: q (B, g, N, d), k and v (B, g, M, d), uk
 (B, g, M), valid (B, M), rois (B, N, 4), ref_rois (B, M, 4), Wg (E, g),
 bias (B, g, N, M).
 The kernel takes g = 16, d = 64 and E = 64 (the MEGA configuration).
+
+The wrappers are forward-only and raise on an operand that requires grad;
+``RelationAttentionFunction`` gives modes "none" and "input" a gradient,
+recomputed through ``reference_relation_attention`` (the JAX package's
+``_vjp_bwd``). Mode "compute" has none yet.
 """
 
 from __future__ import annotations
@@ -318,3 +323,40 @@ def flash_relation_attention_bias(q, k, v, uk, bias, valid):
 flash_relation_attention.launches = 0
 flash_relation_attention_pos.launches = 0
 flash_relation_attention_bias.launches = 0
+
+
+# -- gradients ---------------------------------------------------------------------
+# The counterpart of the JAX package's custom_vjp (``_vjp_fwd`` / ``_vjp_bwd``):
+# the forward launches the kernel on the detached operands; the backward
+# recomputes the plain version under autograd from the saved operands (the
+# (B, g, N, M) logits are materialised there, which training's ref counts
+# afford) and returns each gradient in its operand's dtype.
+
+def _recompute_grads(grad_out, q, k, v, uk, bias, valid):
+    """Gradients of q, k, v, uk (and the bias, unless None) from autograd
+    through the plain version."""
+    with torch.enable_grad():
+        diff = [t.detach().requires_grad_() for t in (q, k, v, uk, bias) if t is not None]
+        out = reference_relation_attention(*diff[:4], diff[4] if bias is not None else None,
+                                           valid)
+        return torch.autograd.grad(out, diff, grad_out)
+
+
+class RelationAttentionFunction(torch.autograd.Function):
+    """Modes "none" and "input" with a gradient: ``apply(q, k, v, uk, bias,
+    valid, launch)``, ``launch`` the forward: ``flash_relation_attention``
+    with ``bias`` None, else ``flash_relation_attention_bias`` (a CPU test
+    passes the tiled plain version). Gradients for q, k, v, uk and the log
+    bias (None without one)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, uk, bias, valid, launch):
+        ctx.save_for_backward(q, k, v, uk, bias, valid)
+        operands = [t.detach() for t in (q, k, v, uk, bias) if t is not None]
+        return launch(*operands, valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, uk, bias, valid = ctx.saved_tensors
+        grads = _recompute_grads(grad_out, q, k, v, uk, bias, valid)
+        return (*grads[:4], grads[4] if bias is not None else None, None, None)

@@ -1,7 +1,8 @@
-"""Where a streaming step's time goes, on one CUDA card.
+"""Where a streaming step's (or a training iteration's) time goes, on one
+CUDA card.
 
     python -m mega_pytorch_tpu_torch.tools.profile_stream --out DIR \
-        [--method {mega,rdn,fgfa,dff}] [--lanes L]
+        [--method {mega,rdn,fgfa,dff,mega_train}] [--lanes L]
 
 Builds the method's flagship (R-101, bf16, 608x1024, seeded random weights;
 ``build_method_flagship``). MEGA with one lane (its default) streams the
@@ -11,7 +12,11 @@ L`` it drives L lockstep lanes of synthetic frames through
 from a pool of random canvases). RDN and FGFA (4 lanes by default) drive
 ``make_lockstep_step_windowed`` with every lane pushing a new frame each
 step after its first; DFF (4 lanes) alternates ``make_lockstep_steps_dff``'s
-key step and 9 non-key steps, its key interval of 10:
+key step and 9 non-key steps, its key interval of 10. ``mega_train`` runs
+``engine/trainer.py:train_step`` of the ``mega_R_101`` preset for training
+(``build_training_model``, FrozenBN statistics calibrated as chip_smoke's
+train phase does, SGD) on 4 seeded synthetic samples of 720x1280 frames in
+turn (``tools/train_bench.py``), one sample an iteration:
 
   1. warm-up steps (cuDNN plans, the kernel build), not counted;
   2. plain steps: host clock per step with a synchronise after it;
@@ -57,11 +62,19 @@ from ..models.detectors import rcnn as rcnn_mod
 from ..models.detectors import rdn as rdn_mod
 
 CANVAS = (608, 1024)
+TRAIN_FRAME = (720, 1280)  # mega_train: VID's 720p frames, resized by the preset
+
 NUM_FRAMES = 40  # 52 steps with the 12 warm-up steps
 WARMUP, STEPS = 20, 10  # steps not counted; steps in each of the 3 phases
 KEY_INTERVAL = 10  # DFF
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
+
+
+def _train_cfg():
+    from ..config import get_preset
+
+    return get_preset("mega_R_101")
 
 
 def _lockstep_steps(model, lanes: int, rs: np.random.RandomState):
@@ -117,6 +130,22 @@ def _method_steps(model, lanes: int, rs: np.random.RandomState):
         yield dets
 
 
+def _train_steps(model, optimizer, scheduler, rs: np.random.RandomState):
+    """Endless training iterations of MEGA on seeded synthetic samples."""
+    from ..engine.trainer import train_step
+    from .train_bench import synthetic_mega_samples
+
+    dev = next(model.parameters()).device
+    samples = synthetic_mega_samples(_train_cfg(), TRAIN_FRAME, rs)
+    gen = torch.Generator(dev).manual_seed(0)
+    s = 0
+    while True:
+        losses = train_step(model, optimizer, scheduler, "mega", [samples[s % len(samples)]],
+                            dev, gen)
+        s += 1
+        yield losses
+
+
 def _steps(gen, n):
     """Run n steps; host-clock ms of each, synchronised."""
     out = []
@@ -129,8 +158,9 @@ def _steps(gen, n):
 
 
 @contextlib.contextmanager
-def _layer_timers(model):
-    """Wrap the step's pieces; yields {piece: [ms per call]}."""
+def _layer_timers(model, optimizer=None):
+    """Wrap the step's pieces (training: ``optimizer``'s step too); yields
+    {piece: [ms per call]}."""
     calls = defaultdict(list)
 
     def timed(label, fn):
@@ -145,7 +175,26 @@ def _layer_timers(model):
 
     ext = model.extractor
     method = model.v.method
-    if method == "mega":
+    if optimizer is not None:  # a MEGA training iteration
+        methods = [
+            (model, "forward_train", "forward_train (whole)"),
+            (model.backbone, "forward", "backbone, local / global / memory frames"),
+            (model.rpn, "forward", "RPN head"),
+            (ext, "extract_train", "extract_train (whole)"),
+            (ext, "enhance_features", "res5 head"),
+            (ext, "pool_flat", "ROIAlign"),
+            (ext, "fc0", "fc0"),
+            (model.predictor, "forward", "predictor"),
+            (optimizer, "step", "SGD step"),
+        ]
+        functions = [
+            (rcnn_mod, "rpn_loss", "RPN loss"),
+            (rcnn_mod, "rpn_postprocess", "RPN postprocess, cur (6000 -> 300)"),
+            (mega_mod, "rpn_postprocess", "RPN postprocess, local refs (6000 -> 75)"),
+            (rdn_mod, "rpn_postprocess", "RPN postprocess, memory / global (6000 -> 75)"),
+            (rcnn_mod, "subsample_proposals", "subsample_proposals"),
+        ]
+    elif method == "mega":
         methods = [
             (model, "precompute_pair", "precompute_pair (whole)"),
             (model.backbone, "forward", "backbone, local + global frame of each lane"),
@@ -202,6 +251,9 @@ def _layer_timers(model):
             (rcnn_mod, "postprocess_detections", "postprocess_detections (per-class NMS)"),
         ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in functions]
+    # an instance's own attribute (the LR scheduler's wrapper of
+    # optimizer.step) is put back; elsewhere the class attribute shows through
+    own = [(obj, name, vars(obj).get(name)) for obj, name, _ in methods]
     for obj, name, label in methods:
         setattr(obj, name, timed(label, getattr(obj, name)))
     for mod, name, label in functions:
@@ -209,8 +261,11 @@ def _layer_timers(model):
     try:
         yield calls
     finally:
-        for obj, name, _ in methods:
-            delattr(obj, name)  # the class attribute shows through again
+        for obj, name, fn in own:
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
         for mod, name, fn in saved:
             setattr(mod, name, fn)
 
@@ -266,7 +321,8 @@ def _trace_summary(events, steps, wall_ms):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for the results")
-    ap.add_argument("--method", default="mega", choices=("mega", "rdn", "fgfa", "dff"))
+    ap.add_argument("--method", default="mega",
+                    choices=("mega", "rdn", "fgfa", "dff", "mega_train"))
     ap.add_argument("--lanes", type=int, default=None,
                     help="lockstep lanes (default: 1 for mega, 4 for the others)")
     args = ap.parse_args(argv)
@@ -278,19 +334,31 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    lanes = args.lanes or (1 if args.method == "mega" else 4)
-    model = build_method_flagship(args.method, *CANVAS, device="cuda", lanes=lanes,
-                                  generator=torch.Generator("cuda").manual_seed(0))
+    lanes = args.lanes or (1 if args.method.startswith("mega") else 4)
     rs = np.random.RandomState(0)
-    if args.method != "mega":
-        gen = _method_steps(model, lanes, rs)
-    elif lanes == 1:
-        gen = run_video(model, *synthetic_video(rs, NUM_FRAMES, *CANVAS))
+    optimizer = None
+    if args.method == "mega_train":
+        from ..models.detectors import build_training_model
+        from ..solver import make_lr_scheduler, make_optimizer
+        from .train_bench import calibrate_frozen_bn, calibration_frames
+
+        cfg = _train_cfg()
+        model = build_training_model(cfg, "cuda", torch.Generator("cuda").manual_seed(0))
+        calibrate_frozen_bn(model, calibration_frames(cfg, TRAIN_FRAME, rs, "cuda"))
+        optimizer = make_optimizer(cfg, model)
+        gen = _train_steps(model, optimizer, make_lr_scheduler(cfg, optimizer), rs)
     else:
-        gen = _lockstep_steps(model, lanes, rs)
+        model = build_method_flagship(args.method, *CANVAS, device="cuda", lanes=lanes,
+                                      generator=torch.Generator("cuda").manual_seed(0))
+        if args.method != "mega":
+            gen = _method_steps(model, lanes, rs)
+        elif lanes == 1:
+            gen = run_video(model, *synthetic_video(rs, NUM_FRAMES, *CANVAS))
+        else:
+            gen = _lockstep_steps(model, lanes, rs)
     _steps(gen, WARMUP)
     plain = _steps(gen, STEPS)
-    with _layer_timers(model) as calls:
+    with _layer_timers(model, optimizer) as calls:
         layered = _steps(gen, STEPS)
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])

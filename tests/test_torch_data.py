@@ -208,7 +208,7 @@ import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "PIL", "yaml") \
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "PIL", "yaml") \
                 or name == "mega_pytorch_tpu" or name.startswith("mega_pytorch_tpu."):
             raise ImportError(f"blocked: {name}")
         return None
@@ -227,14 +227,15 @@ img = np.random.RandomState(0).randint(0, 256, (720, 1280, 3), dtype=np.uint8)
 p = preprocess_image_u8(img, 600, 1000, False)
 assert p.image.shape == (608, 1024, 3) and tuple(p.size) == (562.0, 999.0)
 assert get_preset("mega_R_101").MODEL.VID.METHOD == "mega"
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "yaml", "mega_pytorch_tpu")]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "flax", "optax", "PIL", "yaml", "mega_pytorch_tpu")]
 assert not bad, bad
 print("imported", len(names), "modules")
 """
 
 
 def test_port_imports_without_jax_pil_yaml():
-    """Every module of the port imports with jax, flax, PIL, yaml and the JAX
+    """Every module of the port imports with jax, flax, optax, PIL, yaml and the JAX
     package blocked, and the card path's preprocessing and presets run there."""
     proc = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)

@@ -446,3 +446,82 @@ def test_position_bias_kernel_ragged_and_far(cuda, n, m, floor):
     torch.testing.assert_close(got.exp(), want.exp(), rtol=RTOL_BIAS, atol=ATOL_BIAS)
     if floor:
         assert float((want.exp() <= 2e-6).float().mean()) > 0.2
+
+
+# the (N, M) of each attention call of one MEGA R-101 training iteration
+# (ROI batch 128; 75 refs a frame, 15 distilled; cur + 2 local, 3 memory
+# and 2 global frames): "none" for the global enhancement of the memory
+# pool, of the key ROIs with the local refs, and the residual stage;
+# "input" for the memory pool's two self-enhancement stages and the three
+# local stages
+TRAIN_SHAPES = {"none": [(225, 150), (353, 150), (128, 150)],
+                "input": [(45, 225), (45, 45), (173, 450), (173, 90), (128, 90)]}
+
+
+def _train_operands(dev, mode, n, m, seed):
+    """Two lanes: lane 0 with ragged valid refs, lane 1 with none; the
+    attention operands require grad (the log bias of mode "input" with
+    about a quarter of its pairs at the relu floor)."""
+    q, k, v, uk, _, _, _, _, valid = _attention(dev, seed, n=n, m=m)
+    valid[1] = False
+    ops = [q, k, v, uk] + ([_log_bias(dev, seed + 1, 2, n, m)] if mode == "input" else [])
+    return [t.requires_grad_() for t in ops], valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n,m", [(mode, n, m) for mode, shapes in TRAIN_SHAPES.items()
+                                      for n, m in shapes])
+def test_train_functions_at_train_shapes(cuda, mode, n, m):
+    """Each Function launches its kernel once (forward within tolerance of
+    the plain versions, zeros on the lane with no valid ref) and its
+    gradients equal torch.autograd.grad through the plain version on the
+    same operands bit for bit, each in its operand's dtype."""
+    ops, valid = _train_operands(cuda, mode, n, m, 60 + n + m)
+    wrapper = ra.flash_relation_attention if mode == "none" else ra.flash_relation_attention_bias
+    before = wrapper.launches
+    bias_op = ops[4] if mode == "input" else None
+    out = ra.RelationAttentionFunction.apply(*ops[:4], bias_op, valid, wrapper)
+    assert wrapper.launches == before + 1
+    bias = ops[4].detach() if mode == "input" else None
+    _assert_matches_plain(out.detach(), *(t.detach() for t in ops[:4]), bias, valid)
+    assert float(out[1].abs().max()) == 0.0
+    cot = torch.randn(out.shape, generator=torch.Generator(cuda).manual_seed(n), device=cuda)
+    got = torch.autograd.grad(out, ops, cot)
+    assert wrapper.launches == before + 1  # the backward launches nothing
+    plain = ra.reference_relation_attention(*ops[:4], ops[4] if mode == "input" else None,
+                                            valid)
+    want = torch.autograd.grad(plain, ops, cot)
+    for name, op, g, w in zip(("q", "k", "v", "uk", "bias"), ops, got, want):
+        assert g.dtype == op.dtype and torch.equal(g, w), name
+        assert torch.isfinite(g).all(), name
+
+
+@pytest.mark.cuda
+def test_relation_attention_under_grad_takes_the_functions(cuda):
+    """RelationAttention on the card under grad: precise_bias launches mode
+    "input" and gives Wg a gradient, the global stage launches "none";
+    mode "compute" has no gradient, so the in-kernel bias raises."""
+    from mega_pytorch_tpu_torch.models.roi_heads.attention import RelationAttention
+
+    gen = torch.Generator(cuda).manual_seed(3)
+    q, k, v, uk, rois, refs, wk, wb, valid = _attention(cuda, 11, b=1, n=45, m=90)
+    roi = torch.randn(1, 45, 1024, generator=gen, device=cuda)
+    ref = torch.randn(1, 90, 1024, generator=gen, device=cuda)
+    for use_position, wrapper in ((True, ra.flash_relation_attention_bias),
+                                  (False, ra.flash_relation_attention)):
+        att = RelationAttention(1024, 64, 16, use_position, torch.bfloat16, cuda)
+        for m in att.modules():
+            if hasattr(m, "init_weights"):
+                m.init_weights(gen)
+        before = wrapper.launches
+        pos = (rois, refs) if use_position else None
+        out = att(roi, ref, valid, pos_rois=pos, precise_bias=True)
+        assert wrapper.launches == before + 1
+        out.square().sum().backward()
+        assert wrapper.launches == before + 1
+        grads = [p.grad for p in att.parameters()]
+        assert all(g is not None and torch.isfinite(g).all() for g in grads)
+        if use_position:
+            assert float(att.Wg.kernel.grad.abs().max()) > 0.0
+            with pytest.raises(NotImplementedError, match="compute"):
+                att(roi, ref, valid, pos_rois=pos)
