@@ -73,10 +73,10 @@ Phases, each printing its own lines:
      ms a frame, the whole run's frames/s and ms/step, and the producer's
      time a batch against the step;
   12. train kernels: modes "none" and "input" through their autograd
-     Functions at every shape of a training iteration (two lanes, one with
-     no valid ref): one launch, within 6e-3 of the tiled plain version,
-     zeros on the empty lane, gradients equal to autograd through the plain
-     version bit for bit; times at one lane;
+     Functions at every shape of a MEGA and of an RDN training iteration
+     (two lanes, one with no valid ref): one launch, within 6e-3 of the
+     tiled plain version, zeros on the empty lane, gradients equal to
+     autograd through the plain version bit for bit; times at one lane;
   13. train: MEGA R-101 training through ``tools/train_net.py``'s ``main``
      (the ``mega_R_101`` preset: bf16 compute, f32 master weights, the
      608x1024 canvas, one sample an iteration of cur + 2 local, 3 memory and
@@ -87,7 +87,22 @@ Phases, each printing its own lines:
      parameters and buffers bit-identical, 3 "none" and 5 "input" launches
      (and no other kernel) every iteration, and the checkpoint restoring
      into a fresh model, optimizer and scheduler bit for bit. Prints ms an
-     iteration, samples/s, the producer's ms a sample and peak memory.
+     iteration, samples/s, the producer's ms an iteration and peak memory;
+  14. method training: RDN (``rdn_R_101``, the advanced stage, 4 samples an
+     iteration of cur + 2 refs in turn), FGFA (``fgfa_R_101``) and DFF
+     (``dff_R_101``) through ``train_net``'s ``main`` over the same tree, 6
+     iterations each with a checkpoint at 3: the checks of phase 13, every
+     trainable module moved by the first step (FlowNetS and the embedding
+     net included), 16 "input" launches every RDN iteration and none for
+     FGFA and DFF;
+  15. ddp: a one-rank NCCL process group and ``DistributedDataParallel``
+     (``tools/ddp_check.py``): two ``rdn_R_101`` iterations through
+     ``train_step`` on the wrapped model (``no_sync`` on the first three
+     samples of each) against the same iterations through the plain step,
+     run twice for the card's own spread and once with the last sample
+     left out (a planted fault); each tensor's update in two DDP runs (the
+     second warm) within max(1e-5, 8x the spread) of the plain one's,
+     relative to its largest, and the fault above that bound.
 Each phase prints its seconds. The last two lines are the kernel table and
 the device record as JSON. Any failed check raises, and the script exits
 non-zero.
@@ -155,7 +170,13 @@ TRAIN_ATTENTION = {
                                  ("global residual", 128, 150)],
     "flash_relation_attention_bias": [("memory stage 0", 45, 225), ("memory stage 1", 45, 45),
                                       ("local stage 0", 173, 450), ("local stage 1", 173, 90),
-                                      ("local stage 2", 128, 90)],
+                                      ("local stage 2", 128, 90),
+                                      # RDN training (ROI batch 128; cur + 2 refs of 75,
+                                      # 15 of each distilled): base stages, advanced
+                                      # stage, final stage
+                                      ("rdn base stages", 128, 225),
+                                      ("rdn advanced stage", 45, 225),
+                                      ("rdn final stage", 128, 45)],
 }
 # kernel launches per engine step on each path (any lane count); every
 # kernel is listed, so that its 0 is measured too
@@ -172,6 +193,20 @@ PER_STEP = {
 # a training iteration: the canonical stem on RGB frames (no stem pool),
 # the position bias in plain f32 into mode "input", no "compute"
 PER_ITER_TRAIN = dict(_NO_KERNEL, flash_relation_attention=3, flash_relation_attention_bias=5)
+# RDN, FGFA and DFF training (phase 14): iterations and the checkpoint's
+# iteration; per iteration, RDN's IMS_PER_BATCH 4 samples each launch
+# "input" at its 2 base stages, the advanced stage and the final stage;
+# FGFA and DFF reach no kernel (RGB frames, no attention)
+METHOD_TRAIN_ITERS, METHOD_TRAIN_CKPT = 6, 3
+METHOD_TRAIN = {
+    "rdn": ("rdn_R_101", "VIDRDNDataset",
+            dict(_NO_KERNEL, flash_relation_attention_bias=16)),
+    "fgfa": ("fgfa_R_101", "VIDFGFADataset", _NO_KERNEL),
+    "dff": ("dff_R_101", "VIDDFFDataset", _NO_KERNEL),
+}
+# the one-rank NCCL DDP step (phase 15): iterations of rdn_R_101 against
+# the plain step (tools/ddp_check.py states the bound)
+DDP_ITERS = 2
 
 
 def _fail(msg: str):
@@ -1340,6 +1375,8 @@ def phase_train_kernels():
         for label, n, m in cases:
             x = _attention_inputs(gen, 2, n, m, dev)
             x["valid"][1] = False
+            if label.startswith("rdn"):  # RDN's attention has no u bias
+                x["uk"] = torch.zeros_like(x["uk"])
             ops = [x["q"], x["k"], x["v"], x["uk"]]
             if mode == "input":  # the log bias of the train path's f32 sinusoids
                 x["wb"] = x["wb"] * 0.0  # Wg's initial bias: pw at its relu floor for ~half
@@ -1415,27 +1452,26 @@ def _same_state(a, b) -> bool:
     return a == b
 
 
-def phase_train(smi):
-    """MEGA R-101 training at full width through ``tools/train_net.py``'s
-    ``main`` on the card: the ``mega_R_101`` preset (bf16 compute, f32 master weights from seed 0,
-    the 608x1024 canvas, MIN_SIZE_TRAIN 600 / MAX_SIZE_TRAIN 1000, one
-    sample an iteration, the preset's frame pools: cur + 2 local, 3 memory,
-    2 global), over a synthetic on-disk ILSVRC2015 train tree (VID videos in
+def run_training(smi, preset, dataset_name, iters, ckpt, per_iter, tag):
+    """Training of ``preset`` at full width through ``tools/train_net.py``'s
+    ``main`` on the card (bf16 compute, f32 master weights from seed 0, the
+    608x1024 canvas, MIN_SIZE_TRAIN 600 / MAX_SIZE_TRAIN 1000, the preset's
+    IMS_PER_BATCH samples an iteration, one after the other, and its frames
+    a sample), over a synthetic on-disk ILSVRC2015 train tree (VID videos in
     the VID_train_15frames index form and DET stills of TRAIN_FRAME, two
-    orientations, frames drawn), TRAIN_ITERS iterations with a checkpoint at
-    TRAIN_CKPT.
-    Checks finite losses, every trainable group moved by the first step,
-    frozen parameters and buffers bit-identical at the end, the launches of
-    every iteration, and a fresh model, optimizer and scheduler restored
-    from the checkpoint equal to the live state there bit for bit. Returns
-    (launches, launches per iteration)."""
+    orientations, frames drawn; the port's ``dataset_name`` class reads
+    it), ``iters`` iterations with a checkpoint at ``ckpt``. Checks finite
+    losses, every trainable group and every trainable module moved by the
+    first step, frozen parameters and buffers bit-identical at the end, the
+    launches of every iteration (``per_iter``), and a fresh model,
+    optimizer and scheduler restored from the checkpoint equal to the live
+    state there bit for bit. Returns (launches, launches per iteration)."""
     import functools
     import tempfile
 
     import torch
-    from mega_pytorch_tpu_torch.config import get_preset
     from mega_pytorch_tpu_torch.data import loader, paths_catalog
-    from mega_pytorch_tpu_torch.data.datasets.vid import VIDMEGADataset
+    from mega_pytorch_tpu_torch.data.datasets import vid
     from mega_pytorch_tpu_torch.data.paths_catalog import dataset_args
     from mega_pytorch_tpu_torch.engine import trainer
     from mega_pytorch_tpu_torch.models import detectors
@@ -1444,6 +1480,7 @@ def phase_train(smi):
     from mega_pytorch_tpu_torch.tools import train_net
     from mega_pytorch_tpu_torch.tools.test_net import load_config
     from mega_pytorch_tpu_torch.tools.train_bench import (
+        _ref_groups,
         calibrate_frozen_bn,
         calibration_frames,
     )
@@ -1452,7 +1489,6 @@ def phase_train(smi):
     dev = torch.device("cuda")
     rs = np.random.RandomState(13)
     kernels = _kernels()
-    per_iter = dict(PER_ITER_TRAIN)
     rec: dict = dict(step_ms=[], launches=[])
     step, batches_fn = trainer.train_step, loader.train_batches
     stats: dict = {}
@@ -1470,10 +1506,15 @@ def phase_train(smi):
         rec["launches"].append({k.__name__: k.launches - before[k.__name__] for k in kernels})
         if len(rec["step_ms"]) == 1:  # which parameters the first step moved
             initial = rec["initial"]
-            rec["moved"] = {g["name"]: [not torch.equal(p.detach(), initial[n])
-                                        for p, n in zip(g["params"], _names(model, g))]
+            moved = {n: not torch.equal(p.detach(), initial[n])
+                     for n, p in model.named_parameters() if p.requires_grad}
+            rec["moved"] = {g["name"]: [moved[n] for n in _names(model, g)]
                             for g in optimizer.param_groups}
-        if len(rec["step_ms"]) == TRAIN_CKPT:
+            rec["moved_modules"] = {}
+            for n, m in moved.items():
+                top = n.split(".")[0]
+                rec["moved_modules"][top] = rec["moved_modules"].get(top, False) or m
+        if len(rec["step_ms"]) == ckpt:
             rec["at_ckpt"] = _snapshot(model, optimizer, scheduler)
         return losses
 
@@ -1489,29 +1530,30 @@ def phase_train(smi):
                         index="VID_train_15frames.txt", listed=15)
         _write_vid_tree(root, [1] * TRAIN_STILLS, portrait["DET_train_30classes"],
                         TRAIN_FRAME, rs, index="DET_train_30classes.txt", det=True)
-        frames_cls = _synthetic_frames(VIDMEGADataset, TRAIN_FRAME, rs)
+        frames_cls = _synthetic_frames(getattr(vid, dataset_name), TRAIN_FRAME, rs)
 
         def synthetic_dataset(name, method, is_train, data_dir, rng):
             return frames_cls(**dataset_args(name, data_dir), is_train=is_train, rng=rng,
                               portrait=portrait[name])
 
         out_dir = root / "out"
-        args = ["--preset", "mega_R_101", "--data-dir", tmp, "--output-dir", str(out_dir),
+        args = ["--preset", preset, "--data-dir", tmp, "--output-dir", str(out_dir),
                 "--seed", "0", "--device", "cuda", "opts", "SOLVER.MAX_ITER",
-                str(TRAIN_ITERS), "SOLVER.CHECKPOINT_PERIOD", str(TRAIN_CKPT)]
+                str(iters), "SOLVER.CHECKPOINT_PERIOD", str(ckpt)]
         cfg = load_config(train_net.parse_args(args))
-        print(f"[train] {cfg.MODEL.BACKBONE.CONV_BODY} MEGA, {cfg.TPU.COMPUTE_DTYPE} compute, "
-              f"canvas {cfg.TPU.CANVAS_HEIGHT}x{cfg.TPU.CANVAS_WIDTH}, MIN/MAX_SIZE_TRAIN "
-              f"{cfg.INPUT.MIN_SIZE_TRAIN}/{cfg.INPUT.MAX_SIZE_TRAIN}, ROI batch "
-              f"{cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE}, frames a sample 1 + "
-              f"{cfg.MODEL.VID.MEGA.REF_NUM_LOCAL} local + {cfg.MODEL.VID.MEGA.REF_NUM_MEM} "
-              f"memory + {cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL} global; sets "
-              f"{cfg.DATASETS.TRAIN}: {len(TRAIN_VIDEOS)} videos of {min(TRAIN_VIDEOS)}-"
-              f"{max(TRAIN_VIDEOS)} frames and {TRAIN_STILLS} stills of {TRAIN_FRAME[0]}x"
-              f"{TRAIN_FRAME[1]}, two portrait videos and one portrait still")
+        k = cfg.SOLVER.IMS_PER_BATCH
+        refs = " + ".join(f"{n} {key}" for key, n in _ref_groups(cfg).items())
+        print(f"[{tag}] {preset}: {cfg.MODEL.BACKBONE.CONV_BODY} {cfg.MODEL.VID.METHOD}, "
+              f"{cfg.TPU.COMPUTE_DTYPE} compute, canvas {cfg.TPU.CANVAS_HEIGHT}x"
+              f"{cfg.TPU.CANVAS_WIDTH}, MIN/MAX_SIZE_TRAIN {cfg.INPUT.MIN_SIZE_TRAIN}/"
+              f"{cfg.INPUT.MAX_SIZE_TRAIN}, ROI batch {cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE}"
+              f", {k} samples an iteration of cur + {refs}; sets {cfg.DATASETS.TRAIN}: "
+              f"{len(TRAIN_VIDEOS)} videos of {min(TRAIN_VIDEOS)}-{max(TRAIN_VIDEOS)} frames "
+              f"and {TRAIN_STILLS} stills of {TRAIN_FRAME[0]}x{TRAIN_FRAME[1]}, two portrait "
+              "videos and one portrait still")
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
-            k.launches = 0
+        for kern in kernels:
+            kern.launches = 0
         # the FrozenBN statistics of the seeded model calibrated on two
         # seeded frames of the training frames' kind, preprocessed as they are
         calib = calibration_frames(cfg, TRAIN_FRAME, rs, dev)
@@ -1531,48 +1573,51 @@ def phase_train(smi):
         finally:
             trainer.train_step, loader.train_batches = step, batches_fn
             detectors.build_training_model, paths_catalog.build_dataset = build, catalog
-        launches = {k.__name__: k.launches for k in kernels}
+        launches = {kern.__name__: kern.launches for kern in kernels}
         peak = torch.cuda.max_memory_allocated() / 2**20
 
-        iters = len(record["losses"])
+        n_iter = len(record["losses"])
         for i, losses in enumerate(record["losses"]):
-            print(f"[train] iteration {i + 1}: " + ", ".join(
-                f"{k} {v:.5f}" for k, v in losses.items()) + f"; {rec['step_ms'][i]:.1f} ms")
-        if iters != TRAIN_ITERS or not all(np.isfinite(v) for losses in record["losses"]
-                                           for v in losses.values()):
-            _fail(f"train: {iters} iterations, or a loss that is not finite")
+            print(f"[{tag}] iteration {i + 1}: " + ", ".join(
+                f"{key} {v:.5f}" for key, v in losses.items())
+                + f"; {rec['step_ms'][i]:.1f} ms")
+        if n_iter != iters or not all(np.isfinite(v) for losses in record["losses"]
+                                      for v in losses.values()):
+            _fail(f"{tag}: {n_iter} iterations, or a loss that is not finite")
         bad = [(i, c) for i, c in enumerate(rec["launches"]) if c != per_iter]
-        print(f"[train] launches {launches}; per iteration {per_iter} expected, "
+        print(f"[{tag}] launches {launches}; per iteration {per_iter} expected, "
               f"iterations that differ: {bad[:3]}")
         if bad:
-            _fail("train: kernel launches per iteration differ from the expected")
+            _fail(f"{tag}: kernel launches per iteration differ from the expected")
         moved = {g: (sum(m), len(m)) for g, m in rec["moved"].items()}
-        print(f"[train] parameters the first step moved, by group: {moved}")
-        if not all(n > 0 for n, _ in moved.values()):
-            _fail("train: a trainable parameter group did not move in the first step")
+        print(f"[{tag}] parameters the first step moved, by group: {moved}; modules moved: "
+              f"{rec['moved_modules']}")
+        if not all(n > 0 for n, _ in moved.values()) or not all(
+                rec["moved_modules"].values()):
+            _fail(f"{tag}: a trainable parameter group or module did not move in the first "
+                  "step")
         model, optimizer, scheduler = rec["model"], rec["optimizer"], rec["scheduler"]
         params = dict(model.named_parameters())
         final = model.state_dict()
         frozen = [n for n in final if n not in params or not params[n].requires_grad]
         kept = all(torch.equal(final[n], rec["initial"][n]) for n in frozen)
-        print(f"[train] {len(frozen)} frozen parameters and buffers (stem, layer1, "
-              f"FrozenBN) bit-identical after {iters} iterations: {kept}")
+        print(f"[{tag}] {len(frozen)} frozen parameters and buffers (stem, layer1, "
+              f"FrozenBN) bit-identical after {n_iter} iterations: {kept}")
         if not kept or not any(n.startswith("backbone.stem.") for n in frozen):
-            _fail("train: a frozen parameter or buffer changed")
+            _fail(f"{tag}: a frozen parameter or buffer changed")
 
-        payload = Checkpointer(str(out_dir)).load(
-            str(out_dir / f"model_{TRAIN_CKPT:07d}.pth"))
+        payload = Checkpointer(str(out_dir)).load(str(out_dir / f"model_{ckpt:07d}.pth"))
         fresh = build_training_model(cfg, dev, torch.Generator(dev).manual_seed(1))
         fresh_opt = make_optimizer(cfg, fresh)
         fresh_sched = make_lr_scheduler(cfg, fresh_opt)
         start = Checkpointer.restore(payload, fresh, fresh_opt, fresh_sched)
         restored = _snapshot(fresh, fresh_opt, fresh_sched)
         same = [_same_state(a, b) for a, b in zip(restored, rec["at_ckpt"])]
-        print(f"[train] checkpoint {TRAIN_CKPT} restored into a fresh model, optimizer and "
+        print(f"[{tag}] checkpoint {ckpt} restored into a fresh model, optimizer and "
               f"scheduler: iteration {start}; weights, momentum buffers, scheduler position "
               f"equal the live state there bit for bit: {same}")
-        if start != TRAIN_CKPT or not all(same):
-            _fail("train: the checkpoint does not restore the saved state")
+        if start != ckpt or not all(same):
+            _fail(f"{tag}: the checkpoint does not restore the saved state")
         del fresh, fresh_opt, fresh_sched, payload, rec["at_ckpt"], rec["initial"]
         del model, optimizer, scheduler, rec["model"], rec["optimizer"], rec["scheduler"]
 
@@ -1580,12 +1625,86 @@ def phase_train(smi):
     ms = statistics.median(steady)
     loop_s = sum(record["iter_s"])
     feed = statistics.median(stats["feed_s"]) * 1e3
-    print(f"[train] iteration (synchronised, median of iterations 3..{iters}): {ms:.1f} ms; "
-          f"first {rec['step_ms'][0]:.1f} ms; whole run {iters} samples in {loop_s:.2f} s of "
-          f"the loop = {iters / loop_s:.3f} samples/s ({wall:.1f} s with set-up); producer "
-          f"{feed:.1f} ms a sample (8 frames read and preprocessed on one thread) against "
-          f"the {ms:.1f} ms iteration: share {feed / ms:.3f}; peak memory {peak:.0f} MiB; "
-          f"{smi}")
+    frames = k * (1 + sum(_ref_groups(cfg).values()))
+    print(f"[{tag}] iteration (synchronised, median of iterations 3..{n_iter}): {ms:.1f} ms; "
+          f"first {rec['step_ms'][0]:.1f} ms; whole run {n_iter * k} samples in "
+          f"{loop_s:.2f} s of the loop = {n_iter * k / loop_s:.3f} samples/s ({wall:.1f} s "
+          f"with set-up); producer {feed:.1f} ms an iteration ({frames} frames read and "
+          f"preprocessed on one thread) against the {ms:.1f} ms iteration: share "
+          f"{feed / ms:.3f}; peak memory {peak:.0f} MiB; {smi}")
+    torch.cuda.empty_cache()
+    return launches, per_iter
+
+
+def phase_train(smi):
+    """MEGA R-101 training (the ``mega_R_101`` preset: one sample an
+    iteration of cur + 2 local, 3 memory and 2 global frames), TRAIN_ITERS
+    iterations with a checkpoint at TRAIN_CKPT."""
+    return run_training(smi, "mega_R_101", "VIDMEGADataset", TRAIN_ITERS, TRAIN_CKPT,
+                        PER_ITER_TRAIN, "train")
+
+
+def phase_method_training(smi):
+    """RDN (``rdn_R_101``: the advanced stage, IMS_PER_BATCH 4 samples of cur
+    + 2 refs one after the other), FGFA (``fgfa_R_101``: cur + 2 refs) and
+    DFF (``dff_R_101``: cur + 1 ref) training, METHOD_TRAIN_ITERS iterations
+    each with a checkpoint at METHOD_TRAIN_CKPT. Returns {method: (launches,
+    launches per iteration)}."""
+    return {method: run_training(smi, preset, dataset_name, METHOD_TRAIN_ITERS,
+                                 METHOD_TRAIN_CKPT, per_iter, f"{method} train")
+            for method, (preset, dataset_name, per_iter) in METHOD_TRAIN.items()}
+
+
+def phase_ddp(smi):
+    """DistributedDataParallel on the card: a one-rank NCCL process group
+    (``parallel/ddp.py:init_distributed`` with a ``file://`` store in a
+    temporary directory) and ``tools/ddp_check.py``'s comparison: DDP_ITERS
+    iterations of ``rdn_R_101`` (4 samples an iteration, the first three
+    backward passes of each under ``no_sync``) through ``train_step`` on
+    the wrapped model, against the same iterations through the plain step,
+    run twice from the same calibrated state, samples and generator seeds
+    (the second run shows the card's own spread) and once with the last
+    sample left out (a planted fault); each tensor's update in both DDP runs
+    (the second one warm) within max(1e-5, 8x that spread), the fault above
+    it. Returns (launches, launches per iteration) of the warm DDP run."""
+    import tempfile
+
+    import torch
+    from mega_pytorch_tpu_torch.config import get_preset
+    from mega_pytorch_tpu_torch.parallel import ddp
+    from mega_pytorch_tpu_torch.tools import ddp_check
+
+    kernels = _kernels()
+
+    def reset():
+        for kern in kernels:
+            kern.launches = 0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rank, world, dev = ddp.init_distributed("cuda", f"file://{tmp}/store", rank=0,
+                                                world_size=1)
+        try:
+            rec = ddp_check.check(get_preset("rdn_R_101"), dev, DDP_ITERS, seed=17,
+                                  frame_hw=TRAIN_FRAME, on_run=reset)
+        finally:
+            ddp.destroy_distributed()
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    per_iter = {name: n // DDP_ITERS for name, n in launches.items()}
+    print(f"[ddp] {rec['backend']} world {rec['world']} ({dev}), rdn_R_101, {DDP_ITERS} "
+          f"iterations of {rec['samples_per_iteration']} samples (3 backward passes under "
+          f"no_sync each): largest per-tensor difference of the updates from the plain "
+          f"step, relative to the tensor's largest update: DDP {rec['err']:.3e}, a second "
+          f"plain run {rec['spread']:.3e}; bound {rec['bound']:.3e}; the planted fault "
+          f"(last sample left out) {rec['fault']:.3e}; losses at the last iteration DDP "
+          f"{rec['ddp_losses']}, plain {rec['plain_losses']}; ms an iteration DDP "
+          f"{rec['ddp_ms'][0]:.1f} / {rec['ddp_ms'][1]:.1f} (warm), plain "
+          f"{rec['plain_ms'][0]:.1f} / {rec['plain_ms'][1]:.1f}; launches {launches}; {smi}")
+    if not rec["ok"]:
+        _fail(f"ddp: the DDP step's updates differ from the plain step's by "
+              f"{rec['err']:.3e} (bound {rec['bound']:.3e}, the planted fault "
+              f"{rec['fault']:.3e}), or the ranks differ")
+    if per_iter != METHOD_TRAIN["rdn"][2] or any(n % DDP_ITERS for n in launches.values()):
+        _fail(f"ddp: launches {launches} over {DDP_ITERS} iterations")
     torch.cuda.empty_cache()
     return launches, per_iter
 
@@ -1621,6 +1740,8 @@ def main():
     path_launches = timed("position-bias paths", phase_position_bias_paths)
     train_shapes = timed("train kernels", phase_train_kernels)
     train_launches, train_per_iter = timed("train", phase_train, smi)
+    method_training = timed("method training", phase_method_training, smi)
+    ddp_launches, ddp_per_iter = timed("ddp", phase_ddp, smi)
 
     source = {
         "stem_pool_packed": ("cuda", "mega_pytorch_tpu_torch/csrc/stem_pool.cu",
@@ -1640,16 +1761,21 @@ def main():
     }
     # launches: each path's run counts from 0 and is read just after it: the
     # MEGA lanes run (phase 6), the methods (phase 9), the base detector
-    # (phase 10), the eval path (phase 11), MEGA training (phase 13), and
-    # the position-bias paths (phase 7) for the kernel no model path
-    # reaches; launches_per_step is what every step (training: iteration)
-    # of each run launched
+    # (phase 10), the eval path (phase 11), MEGA training (phase 13), RDN,
+    # FGFA and DFF training (phase 14), the DDP step (phase 15), and the
+    # position-bias paths (phase 7) for the kernel no model path reaches;
+    # launches_per_step is what every step (training: iteration) of each
+    # run launched
     by_path = {"mega": lane_launches, **{m: c for m, (c, _) in methods.items()},
                "base": base_launches, "eval path": eval_launches,
                "eval path base (serial)": eval_base,
-               "position-bias paths": path_launches, "train": train_launches}
+               "position-bias paths": path_launches, "train": train_launches,
+               **{f"{m} train": c for m, (c, _) in method_training.items()},
+               "rdn train ddp": ddp_launches}
     per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()},
-                        "eval path": eval_per_step, "train": train_per_iter}
+                        "eval path": eval_per_step, "train": train_per_iter,
+                        **{f"{m} train": p for m, (_, p) in method_training.items()},
+                        "rdn train ddp": ddp_per_iter}
     print(f"[result] launches per kernel: stream (1 lane) {launches}; by path {by_path}")
     print(f"[result] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     rows["stem_pool_packed"]["rdn_shape"] = rdn_stem

@@ -21,14 +21,19 @@ from .transforms import preprocess_image, preprocess_image_u8, transform_boxes
 
 
 class TrainPreprocessor:
+    """``rng`` (required) draws each sample's flip, as the training datasets
+    need theirs for the references: a run's draws follow its seed."""
+
     def __init__(self, min_size: int = 600, max_size: int = 1000,
                  canvas_short: int = 608, canvas_long: int = 1024, max_gt: int = 32,
                  hflip_prob: float = 0.5, rng: np.random.RandomState | None = None):
+        if rng is None:
+            raise ValueError("the preprocessor draws its flips from rng: pass one")
         self.min_size, self.max_size = min_size, max_size
         self.canvas_short, self.canvas_long = canvas_short, canvas_long
         self.max_gt = max_gt
         self.hflip_prob = hflip_prob
-        self.rng = rng or np.random.RandomState()
+        self.rng = rng
 
     def _prep(self, img, flip):
         """The f32 canvas (the serial engine's input)."""
@@ -72,6 +77,8 @@ class TrainPreprocessor:
 class EvalPreprocessor(TrainPreprocessor):
     def __init__(self, **kw):
         kw.setdefault("hflip_prob", 0.0)
+        # a private rng: with no flip its draws decide nothing
+        kw.setdefault("rng", np.random.RandomState(0))
         super().__init__(**kw)
 
     def __call__(self, sample: dict) -> dict:

@@ -47,9 +47,12 @@ def build_detection_model(cfg, device="cuda", generator: torch.Generator | None 
 
 
 def build_training_model(cfg, device="cuda", generator: torch.Generator | None = None):
-    """cfg (ConfigNode) → the detector on ``device`` for training: weights
-    drawn from ``generator`` (seed 0 if None) and kept in f32, the backbone
-    frozen below ``MODEL.BACKBONE.FREEZE_CONV_BODY_AT``, in train mode."""
+    """cfg (ConfigNode) → the detector of any of the five methods on
+    ``device`` for training: weights drawn from ``generator`` (seed 0 if
+    None) and kept in f32, the backbone frozen below
+    ``MODEL.BACKBONE.FREEZE_CONV_BODY_AT``, everything else trainable
+    (FlowNetS and the embedding net included, as the JAX ``param_labels``),
+    in train mode."""
     return seeded_training(detection_model(cfg, device), device, generator)
 
 

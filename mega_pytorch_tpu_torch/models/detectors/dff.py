@@ -1,5 +1,6 @@
-"""DFF streaming detector, inference (counterpart of
-``mega_pytorch_tpu/models/detectors/dff.py``, Deep Feature Flow).
+"""DFF streaming detector (counterpart of
+``mega_pytorch_tpu/models/detectors/dff.py``, Deep Feature Flow):
+inference, and ``forward_train`` on a (cur, ref) pair.
 
 A key frame runs the backbone and keeps its normalized image and C4 map
 (``make_key``); every frame, the key frame included, runs FlowNetS on the
@@ -47,6 +48,17 @@ class GeneralizedRCNNDFF(GeneralizedRCNN):
         flow, scale_map = self.flow_and_scale(img_cur, img_ref)
         warped = warp_by_flow(feats_ref.float(), flow.float())
         return warped * scale_map.float()
+
+    def forward_train(self, batch, gt: dict, generator: torch.Generator | None = None) -> dict:
+        """batch = (normalized RGB frames (2, H, W, 3), [cur, ref], sizes
+        (2, 2)) and cur's padded ground truth → the four losses: the backbone
+        on the ref frame only, its map warped to cur and scaled, the
+        single-frame heads on the result. Gradients reach FlowNetS through
+        the warp and the scale map."""
+        images, sizes = batch
+        img_cur, img_ref = images[:1], images[1:2]
+        feats = self.warped_features(img_cur, img_ref, self.backbone(img_ref))
+        return self.detect_heads_train(feats, sizes[:1], gt, generator)
 
     def make_key(self, images: torch.Tensor, sizes: torch.Tensor) -> DFFCarry:
         """Normalized frames (L, H, W, 3) and sizes (L, 2) → each lane's key."""

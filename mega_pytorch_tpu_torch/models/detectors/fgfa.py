@@ -1,6 +1,6 @@
-"""FGFA streaming detector, inference (counterpart of
+"""FGFA streaming detector (counterpart of
 ``mega_pytorch_tpu/models/detectors/fgfa.py``, Flow-Guided Feature
-Aggregation).
+Aggregation): inference, and ``forward_train`` on one sample's frames.
 
 A window of ``all_frame_interval`` frames (19) caches, per frame, its
 normalized image and its C4 map with the map's embedding (1024 + 2048
@@ -48,6 +48,24 @@ class GeneralizedRCNNFGFA(GeneralizedRCNNDFF):
 
     def flow(self, img_cur: torch.Tensor, img_ref: torch.Tensor) -> torch.Tensor:
         return self.flow_and_scale(img_cur, img_ref).float()
+
+    def forward_train(self, batch, gt: dict, generator: torch.Generator | None = None) -> dict:
+        """batch = (normalized RGB frames (1 + ref_num, H, W, 3), cur first,
+        sizes) and cur's padded ground truth → the four losses: every frame's
+        map (f32), each ref's map warped along the flow of (cur, ref), the
+        embedding net on [cur map, warped refs], cosine weights against cur's
+        embedding softmaxed over the refs, and the heads on the weighted sum
+        of the warped refs (cur's own map is not among them, as in the
+        reference)."""
+        images, sizes = batch
+        n = images.shape[0] - 1
+        feats = self.backbone(images).float()
+        flow = self.flow(images[:1].expand(n, -1, -1, -1), images[1:])
+        warped = warp_by_flow(feats[1:], flow)
+        embeds = self.embednet(torch.cat([feats[:1], warped])).float()
+        weights = torch.softmax(cosine_weights(embeds[1:], embeds[:1]), dim=0)
+        agg = (weights * warped).sum(0, keepdim=True)
+        return self.detect_heads_train(agg, sizes[:1], gt, generator)
 
     def precompute(self, images: torch.Tensor, sizes: torch.Tensor):
         """Normalized frames (L, H, W, 3) → window entries (image, [map ;

@@ -170,6 +170,14 @@ class RCNNBase(nn.Module):
             if hasattr(m, "cast_weights_") and m is not self:
                 m.cast_weights_()
 
+    # -- training -------------------------------------------------------------
+    def forward(self, inputs, gt: dict, generator: torch.Generator | None = None) -> dict:
+        """Training: ``forward_train`` (the JAX ``__call__(train=True)``).
+        ``DistributedDataParallel`` reduces the gradients of calls made
+        through its own ``__call__``, so training calls the model, never
+        ``forward_train`` directly."""
+        return self.forward_train(inputs, gt, generator)
+
     # -- helpers --------------------------------------------------------------
     def _anchors(self, feat_h: int, feat_w: int, device) -> torch.Tensor:
         key = (feat_h, feat_w, str(device))
@@ -276,16 +284,21 @@ class GeneralizedRCNN(RCNNBase):
     def forward_test(self, images: torch.Tensor, sizes: torch.Tensor) -> Detections:
         return self.detect_heads(self.backbone(images), sizes)
 
-    def forward_train(self, images: torch.Tensor, sizes: torch.Tensor, gt: dict,
-                      generator: torch.Generator | None = None) -> dict:
-        """Normalized RGB frames (B, H, W, 3) with sizes (B, 2) and their
-        padded ground truth → the four losses: RPN, 128 subsampled ROIs
-        through the box head, Fast R-CNN."""
-        feats = self.backbone(images)
+    def detect_heads_train(self, feats: torch.Tensor, sizes: torch.Tensor, gt: dict,
+                           generator: torch.Generator | None = None) -> dict:
+        """C4 maps (B, h, w, 1024) with image sizes (B, 2) and their padded
+        ground truth → the four losses: RPN, 128 subsampled ROIs through the
+        box head, Fast R-CNN. DFF and FGFA run it on their warped maps."""
         objectness, deltas = self.rpn(feats)
         anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
         losses, rois = self._train_rois(objectness, deltas, anchors, sizes, gt, generator)
         return dict(losses, **self._box_losses(self.extractor(feats, rois.boxes), rois))
+
+    def forward_train(self, batch, gt: dict, generator: torch.Generator | None = None) -> dict:
+        """batch = (normalized RGB frames (B, H, W, 3), sizes (B, 2)) and
+        their padded ground truth → the four losses."""
+        images, sizes = batch
+        return self.detect_heads_train(self.backbone(images), sizes, gt, generator)
 
 
 def pad_gt(boxes: np.ndarray, labels: np.ndarray, max_gt: int = 32) -> dict:

@@ -1,6 +1,6 @@
-"""RDN streaming detector, inference (counterpart of
-``mega_pytorch_tpu/models/detectors/rdn.py``), and the window protocol it
-shares with MEGA.
+"""RDN streaming detector (counterpart of
+``mega_pytorch_tpu/models/detectors/rdn.py``): inference, the window
+protocol it shares with MEGA, and ``forward_train`` on one sample's frames.
 
 A window of ``all_frame_interval`` frames (37) holds, per frame, its 75 ref
 proposals and 300 key proposals with their fc0 ROI features, computed once
@@ -181,6 +181,22 @@ class GeneralizedRCNNRDN(WindowedRCNN):
             advanced_stage=v.advanced_stage, base_num=c.ref_post_nms_top_n,
             advanced_num=int(c.ref_post_nms_top_n * v.ratio), embed_dim=v.embed_dim,
             groups=v.groups, dtype=dtype, device=device), device)
+
+    def forward_train(self, batch, gt: dict, generator: torch.Generator | None = None) -> dict:
+        """batch = (normalized RGB frames (1 + ref_num, H, W, 3), cur first,
+        sizes (1 + ref_num, 2)) and cur's padded ground truth (leading dim 1)
+        → the four losses. The key RPN (losses, 300 training proposals, 128
+        of them subsampled) runs on cur; every frame, cur included, gives its
+        75 ref proposals from the detached RPN outputs; every frame's map
+        carries gradient into res5 and the backbone."""
+        images, sizes = batch
+        feats = self.backbone(images)
+        objectness, deltas = self.rpn(feats[:1])
+        anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
+        losses, rois = self._train_rois(objectness, deltas, anchors, sizes[:1], gt, generator)
+        refs = self._ref_proposals(feats, sizes)
+        x = self.extractor.extract_train(feats, rois.boxes[0], refs.boxes, refs.valid)
+        return dict(losses, **self._box_losses(x, rois))
 
     def detect_key(self, carry: RDNCarry) -> Detections:
         """Detect at every lane's key slot over all the window's refs →

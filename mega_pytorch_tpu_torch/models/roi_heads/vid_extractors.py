@@ -10,7 +10,9 @@ position weight and no ``u`` bias.
 Stage i lives under ``fcs_{i}`` / ``attn_{i}``: with ``advanced_stage`` 0
 there are ``base_stage`` of each, otherwise base + advanced fcs and base +
 advanced + 1 attentions. Every tensor leads with the lane dimension.
-``extract_train`` is not ported."""
+Serving (``extract_test``, fc0 applied when a frame enters the window) and
+training (``extract_train``, one sample's frames pooled, the f32-sinusoid
+bias of ``precise_bias``) share ``_stages``."""
 
 from __future__ import annotations
 
@@ -62,27 +64,50 @@ class RDNFeatureExtractor(Res5Pooler):
         of rois (L, R, 4)."""
         return self.fc0(self.pool_flat(self.enhance_features(c4), rois))
 
+    def _stages(self, x, x_refs, cur_rois, ref_rois, ref_valid,
+                skip_first_fc: bool = False, precise: bool = False):
+        """The base stages and the optional advanced stage. x (L, N, ·) the
+        current ROIs' pooled features (each stage applies its fc first), or,
+        with ``skip_first_fc``, features with fcs_0 applied; x_refs (L, M, D)
+        fc0 features of the refs, M = T * base_num in frame blocks;
+        cur_rois (L, N, 4), ref_rois (L, M, 4), ref_valid (L, M); ``precise``
+        passes ``precise_bias`` to every attention → (L, N, D)."""
+        for i in range(self.base_stage):
+            if not (skip_first_fc and i == 0):
+                x = self._fc(i, x)
+            x = x + self.attn(i)(x, x_refs, ref_valid, pos_rois=(cur_rois, ref_rois),
+                                 precise_bias=precise)
+        if self.advanced_stage == 0:
+            return x
+        # the top advanced_num refs of each frame, which relies on the RPN's
+        # NMS emitting each frame's proposals in descending score order
+        t = x_refs.shape[1] // self.base_num
+        refs_adv, rois_adv, valid_adv = (
+            distill(a, t, self.base_num, self.advanced_num)
+            for a in (x_refs, ref_rois, ref_valid))
+        for i in range(self.advanced_stage):
+            j = self.base_stage + i
+            att = self.attn(j)(refs_adv, x_refs, ref_valid, pos_rois=(rois_adv, ref_rois),
+                               precise_bias=precise)
+            refs_adv = self._fc(j, refs_adv + att)
+        last = self.attn(self.base_stage + self.advanced_stage)
+        return x + last(x, refs_adv, valid_adv, pos_rois=(cur_rois, rois_adv),
+                        precise_bias=precise)
+
+    def extract_train(self, maps, key_rois, ref_rois, ref_valid):
+        """One training sample: C4 maps (F, h, w, 1024), frame 0 the current
+        one; its subsampled ROIs key_rois (N, 4); every frame's ref
+        proposals ref_rois (F, base_num, 4) with validity (F, base_num) →
+        (1, N, D) f32, one lane."""
+        enhanced = self.enhance_features(maps)
+        x = self.pool_flat(enhanced[:1], key_rois[None])
+        x_refs = self.fc0(self.pool_flat(enhanced, ref_rois).reshape(1, -1, self.flat_dim))
+        return self._stages(x, x_refs, key_rois[None], ref_rois.reshape(1, -1, 4),
+                            ref_valid.reshape(1, -1), precise=True)
+
     def extract_test(self, x, cur_rois, ref_rois, ref_valid, ref_feats):
         """x (L, K, D) key ROI features with fcs_0 applied, cur_rois (L, K, 4),
         the window's refs ref_rois (L, T*base_num, 4), ref_valid
         (L, T*base_num), ref_feats (L, T*base_num, D) fc0 features →
         (L, K, D)."""
-        for i in range(self.base_stage):
-            if i > 0:
-                x = self._fc(i, x)
-            x = x + self.attn(i)(x, ref_feats, ref_valid, pos_rois=(cur_rois, ref_rois))
-        if self.advanced_stage == 0:
-            return x
-        # the top advanced_num refs of each frame, which relies on the RPN's
-        # NMS emitting each frame's proposals in descending score order
-        t = ref_feats.shape[1] // self.base_num
-        refs_adv, rois_adv, valid_adv = (
-            distill(a, t, self.base_num, self.advanced_num)
-            for a in (ref_feats, ref_rois, ref_valid))
-        for i in range(self.advanced_stage):
-            j = self.base_stage + i
-            att = self.attn(j)(refs_adv, ref_feats, ref_valid,
-                               pos_rois=(rois_adv, ref_rois))
-            refs_adv = self._fc(j, refs_adv + att)
-        last = self.attn(self.base_stage + self.advanced_stage)
-        return x + last(x, refs_adv, valid_adv, pos_rois=(cur_rois, rois_adv))
+        return self._stages(x, ref_feats, cur_rois, ref_rois, ref_valid, skip_first_fc=True)

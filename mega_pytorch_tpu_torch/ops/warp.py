@@ -7,7 +7,9 @@ which samples at ``x_src = (x + flow_x) * W / (W - 1) - 1/2`` (and likewise
 in y) with the coordinates clamped into the map. ``warp_by_flow`` computes
 those coordinates as the JAX package does and samples them through
 ``bilinear_sample``. Maps are NHWC with any leading dimensions (lanes,
-frames).
+frames). The gradients are JAX's, the border included (``_clip``); on CUDA
+the gathers' backward adds with atomics, so they are not bit-reproducible
+from run to run there.
 """
 
 from __future__ import annotations
@@ -15,13 +17,20 @@ from __future__ import annotations
 import torch
 
 
+def _clip(x: torch.Tensor, hi: float) -> torch.Tensor:
+    """``x`` clipped into [0, hi] as ``jnp.clip`` computes it, a maximum then
+    a minimum, whose gradient is 1/2 at a coordinate exactly on a bound
+    (``torch.clamp``'s is 1 there): the warp's gradient then equals JAX's
+    on the border too."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), hi))
+
+
 def bilinear_sample(features: torch.Tensor, src_x: torch.Tensor,
                     src_y: torch.Tensor) -> torch.Tensor:
     """Border-clamped bilinear sample of (..., H, W, C) ``features`` at pixel
     coordinates ``src_x``, ``src_y`` (each (..., H, W)) → (..., H, W, C)."""
     *lead, h, w, c = features.shape
-    src_x = src_x.clamp(0.0, w - 1.0)
-    src_y = src_y.clamp(0.0, h - 1.0)
+    src_x, src_y = _clip(src_x, w - 1.0), _clip(src_y, h - 1.0)
     x0, y0 = torch.floor(src_x), torch.floor(src_y)
     x1 = torch.clamp(x0 + 1, max=w - 1.0)
     y1 = torch.clamp(y0 + 1, max=h - 1.0)

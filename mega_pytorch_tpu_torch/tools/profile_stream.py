@@ -2,7 +2,8 @@
 CUDA card.
 
     python -m mega_pytorch_tpu_torch.tools.profile_stream --out DIR \
-        [--method {mega,rdn,fgfa,dff,mega_train}] [--lanes L]
+        [--method {mega,rdn,fgfa,dff,mega_train,rdn_train,fgfa_train,dff_train}] \
+        [--lanes L]
 
 Builds the method's flagship (R-101, bf16, 608x1024, seeded random weights;
 ``build_method_flagship``). MEGA with one lane (its default) streams the
@@ -12,11 +13,13 @@ L`` it drives L lockstep lanes of synthetic frames through
 from a pool of random canvases). RDN and FGFA (4 lanes by default) drive
 ``make_lockstep_step_windowed`` with every lane pushing a new frame each
 step after its first; DFF (4 lanes) alternates ``make_lockstep_steps_dff``'s
-key step and 9 non-key steps, its key interval of 10. ``mega_train`` runs
-``engine/trainer.py:train_step`` of the ``mega_R_101`` preset for training
-(``build_training_model``, FrozenBN statistics calibrated as chip_smoke's
-train phase does, SGD) on 4 seeded synthetic samples of 720x1280 frames in
-turn (``tools/train_bench.py``), one sample an iteration:
+key step and 9 non-key steps, its key interval of 10. ``{method}_train``
+runs ``engine/trainer.py:train_step`` of the method's R-101 preset for
+training (``mega_R_101``, ``rdn_R_101``, ``fgfa_R_101``, ``dff_R_101``;
+``build_training_model``, FrozenBN statistics calibrated as chip_smoke's
+train phases do, SGD) on seeded synthetic samples of 720x1280 frames in
+turn (``tools/train_bench.py``), the preset's ``IMS_PER_BATCH`` samples an
+iteration (RDN 4, the others 1):
 
   1. warm-up steps (cuDNN plans, the kernel build), not counted;
   2. plain steps: host clock per step with a synchronise after it;
@@ -71,10 +74,14 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
-def _train_cfg():
+TRAIN_METHODS = ("mega_train", "rdn_train", "fgfa_train", "dff_train")
+
+
+def _train_cfg(method: str):
+    """The R-101 preset of ``method`` ("mega_train" → ``mega_R_101``)."""
     from ..config import get_preset
 
-    return get_preset("mega_R_101")
+    return get_preset(method.replace("_train", "_R_101"))
 
 
 def _lockstep_steps(model, lanes: int, rs: np.random.RandomState):
@@ -130,18 +137,21 @@ def _method_steps(model, lanes: int, rs: np.random.RandomState):
         yield dets
 
 
-def _train_steps(model, optimizer, scheduler, rs: np.random.RandomState):
-    """Endless training iterations of MEGA on seeded synthetic samples."""
+def _train_steps(model, optimizer, scheduler, cfg, rs: np.random.RandomState):
+    """Endless training iterations of cfg's method on seeded synthetic
+    samples, ``IMS_PER_BATCH`` of them an iteration."""
     from ..engine.trainer import train_step
-    from .train_bench import synthetic_mega_samples
+    from .train_bench import synthetic_samples
 
     dev = next(model.parameters()).device
-    samples = synthetic_mega_samples(_train_cfg(), TRAIN_FRAME, rs)
+    method = cfg.MODEL.VID.METHOD
+    k = cfg.SOLVER.IMS_PER_BATCH
+    samples = synthetic_samples(cfg, TRAIN_FRAME, rs, max(4, 2 * k))
     gen = torch.Generator(dev).manual_seed(0)
     s = 0
     while True:
-        losses = train_step(model, optimizer, scheduler, "mega", [samples[s % len(samples)]],
-                            dev, gen)
+        batch = [samples[(s * k + i) % len(samples)] for i in range(k)]
+        losses = train_step(model, optimizer, scheduler, method, batch, dev, gen)
         s += 1
         yield losses
 
@@ -175,7 +185,7 @@ def _layer_timers(model, optimizer=None):
 
     ext = model.extractor
     method = model.v.method
-    if optimizer is not None:  # a MEGA training iteration
+    if optimizer is not None and method == "mega":  # a training iteration
         methods = [
             (model, "forward_train", "forward_train (whole)"),
             (model.backbone, "forward", "backbone, local / global / memory frames"),
@@ -194,6 +204,34 @@ def _layer_timers(model, optimizer=None):
             (rdn_mod, "rpn_postprocess", "RPN postprocess, memory / global (6000 -> 75)"),
             (rcnn_mod, "subsample_proposals", "subsample_proposals"),
         ]
+    elif optimizer is not None:
+        methods = [
+            (model, "forward_train", "forward_train (whole)"),
+            (model.backbone, "forward", "backbone"),
+            (model.rpn, "forward", "RPN head"),
+            (model.predictor, "forward", "predictor"),
+            (optimizer, "step", "SGD step"),
+        ]
+        functions = [
+            (rcnn_mod, "rpn_loss", "RPN loss"),
+            (rcnn_mod, "rpn_postprocess", "RPN postprocess, cur (6000 -> 300)"),
+            (rcnn_mod, "subsample_proposals", "subsample_proposals"),
+        ]
+        if method == "rdn":
+            methods += [(ext, "extract_train", "extract_train (whole)"),
+                        (ext, "enhance_features", "res5 head"),
+                        (ext, "pool_flat", "ROIAlign"),
+                        (ext, "fc0", "fc0 (fcs_0)"),
+                        (ext, "_stages", "attention stages (_stages)")]
+            functions += [(rdn_mod, "rpn_postprocess",
+                           "RPN postprocess, every frame's refs (6000 -> 75)")]
+        else:
+            methods += [(model.flownet, "forward", "FlowNetS"),
+                        (ext, "forward", "res5 head + ROIAlign + fc6/fc7")]
+            functions += [(fgfa_mod if method == "fgfa" else dff_mod, "warp_by_flow",
+                           "warp_by_flow")]
+            if method == "fgfa":
+                methods += [(model.embednet, "forward", "embedding net")]
     elif method == "mega":
         methods = [
             (model, "precompute_pair", "precompute_pair (whole)"),
@@ -322,7 +360,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for the results")
     ap.add_argument("--method", default="mega",
-                    choices=("mega", "rdn", "fgfa", "dff", "mega_train"))
+                    choices=("mega", "rdn", "fgfa", "dff") + TRAIN_METHODS)
     ap.add_argument("--lanes", type=int, default=None,
                     help="lockstep lanes (default: 1 for mega, 4 for the others)")
     args = ap.parse_args(argv)
@@ -334,19 +372,20 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    lanes = args.lanes or (1 if args.method.startswith("mega") else 4)
+    lanes = args.lanes or (1 if args.method.startswith("mega") or args.method in TRAIN_METHODS
+                           else 4)
     rs = np.random.RandomState(0)
     optimizer = None
-    if args.method == "mega_train":
+    if args.method in TRAIN_METHODS:
         from ..models.detectors import build_training_model
         from ..solver import make_lr_scheduler, make_optimizer
         from .train_bench import calibrate_frozen_bn, calibration_frames
 
-        cfg = _train_cfg()
+        cfg = _train_cfg(args.method)
         model = build_training_model(cfg, "cuda", torch.Generator("cuda").manual_seed(0))
         calibrate_frozen_bn(model, calibration_frames(cfg, TRAIN_FRAME, rs, "cuda"))
         optimizer = make_optimizer(cfg, model)
-        gen = _train_steps(model, optimizer, make_lr_scheduler(cfg, optimizer), rs)
+        gen = _train_steps(model, optimizer, make_lr_scheduler(cfg, optimizer), cfg, rs)
     else:
         model = build_method_flagship(args.method, *CANVAS, device="cuda", lanes=lanes,
                                       generator=torch.Generator("cuda").manual_seed(0))

@@ -1,7 +1,7 @@
-"""What the training measurements share: ``chip_smoke.py``'s train phase
-and ``tools/profile_stream.py --method mega_train`` start from the same
-seeded model with FrozenBN statistics calibrated on seeded frames, and
-profile_stream trains on seeded synthetic samples."""
+"""What the training measurements share: ``chip_smoke.py``'s train phases
+and ``tools/profile_stream.py --method {mega,rdn,fgfa,dff}_train`` start
+from the same seeded model with FrozenBN statistics calibrated on seeded
+frames, and profile_stream trains on seeded synthetic samples."""
 
 from __future__ import annotations
 
@@ -45,12 +45,12 @@ def calibration_frames(cfg, frame_hw, rs, device, count: int = 2) -> torch.Tenso
     training preprocessing does (the resize correlates neighbouring pixels,
     which sets the activations' scale) → (count, H, W, 3) f32 on ``device``."""
     return torch.from_numpy(np.stack([
-        _train_preprocessor(cfg)._prep(rs.randint(0, 256, (*frame_hw, 3), dtype=np.uint8),
-                                       False).image
+        _train_preprocessor(cfg, rs)._prep(rs.randint(0, 256, (*frame_hw, 3), dtype=np.uint8),
+                                           False).image
         for _ in range(count)])).to(device)
 
 
-def _train_preprocessor(cfg, rng=None) -> TrainPreprocessor:
+def _train_preprocessor(cfg, rng: np.random.RandomState) -> TrainPreprocessor:
     return TrainPreprocessor(min_size=cfg.INPUT.MIN_SIZE_TRAIN[0],
                              max_size=cfg.INPUT.MAX_SIZE_TRAIN,
                              canvas_short=cfg.TPU.CANVAS_HEIGHT,
@@ -58,11 +58,25 @@ def _train_preprocessor(cfg, rng=None) -> TrainPreprocessor:
                              rng=rng)
 
 
-def synthetic_mega_samples(cfg, frame_hw, rs, count: int = 4) -> list[dict]:
-    """``count`` preprocessed MEGA training samples of seeded uint8 frames of
-    ``frame_hw`` (cur, the preset's local, memory and global refs) with 1-3
-    random boxes each, as ``train_batches`` yields them."""
-    v = cfg.MODEL.VID.MEGA
+def _ref_groups(cfg) -> dict:
+    """{sample key: frame count} of the references a training sample of
+    cfg's method carries (the datasets' train side)."""
+    v = cfg.MODEL.VID
+    method = v.METHOD if v.ENABLE else "base"
+    if method == "mega":
+        return {"ref_l": v.MEGA.REF_NUM_LOCAL, "ref_m": v.MEGA.REF_NUM_MEM,
+                "ref_g": v.MEGA.REF_NUM_GLOBAL}
+    if method in ("rdn", "fgfa"):
+        return {"ref": getattr(v, method.upper()).REF_NUM}
+    return {"ref": 1} if method == "dff" else {}
+
+
+def synthetic_samples(cfg, frame_hw, rs, count: int = 4) -> list[dict]:
+    """``count`` preprocessed training samples of cfg's method made of
+    seeded uint8 frames of ``frame_hw`` (cur and the method's references:
+    MEGA's local, memory and global refs, RDN's and FGFA's ``REF_NUM``,
+    DFF's one) with 1-3 random boxes each, as ``train_batches`` yields
+    them."""
     h, w = frame_hw
     prep = _train_preprocessor(cfg, np.random.RandomState(rs.randint(1 << 30)))
 
@@ -74,8 +88,8 @@ def synthetic_mega_samples(cfg, frame_hw, rs, count: int = 4) -> list[dict]:
         n = rs.randint(1, 4)
         xy = rs.rand(n, 2) * [w - 200, h - 200]
         boxes = np.concatenate([xy, xy + 40 + rs.rand(n, 2) * 150], 1).astype(np.float32)
-        samples.append(prep({
-            "cur": frames(1)[0], "ref_l": frames(v.REF_NUM_LOCAL),
-            "ref_m": frames(v.REF_NUM_MEM), "ref_g": frames(v.REF_NUM_GLOBAL),
-            "gt": {"boxes": boxes, "labels": rs.randint(1, 31, n), "im_info": (h, w)}}))
+        sample = {"cur": frames(1)[0],
+                  "gt": {"boxes": boxes, "labels": rs.randint(1, 31, n), "im_info": (h, w)}}
+        sample.update({key: frames(k) for key, k in _ref_groups(cfg).items()})
+        samples.append(prep(sample))
     return samples

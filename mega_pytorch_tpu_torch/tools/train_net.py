@@ -2,6 +2,7 @@
 
     python -m mega_pytorch_tpu_torch.tools.train_net --preset mega_R_101 \\
         --data-dir datasets [--config-file F ...] [--resume] [opts KEY VALUE ...]
+    torchrun --nproc_per_node N -m mega_pytorch_tpu_torch.tools.train_net ...
 
 Builds the detector for training from the preset (``--config-file`` stacks
 merged in order, then the opts), weights drawn from ``--seed`` and, where
@@ -9,9 +10,11 @@ merged in order, then the opts), weights drawn from ``--seed`` and, where
 concatenates the ``DATASETS.TRAIN`` sets (train side, orientation groups),
 and runs ``do_train`` with SGD and the warmup-multistep schedule,
 checkpointing into ``--output-dir`` (``--resume`` continues from its
-``last_checkpoint``). Only the base and MEGA methods train. The run takes
-the CUDA card unless ``--device cpu`` is given, and fails where there is
-none.
+``last_checkpoint``). Every method trains: base, RDN, FGFA, DFF, MEGA.
+Under ``torchrun`` each process takes one card and its share of every
+iteration's ``SOLVER.IMS_PER_BATCH`` samples (``parallel/ddp.py``); a plain
+run is a world of one. The run takes the CUDA card unless ``--device cpu``
+is given (gloo between processes then), and fails where there is none.
 """
 
 from __future__ import annotations
@@ -67,14 +70,17 @@ def orientation_groups(dataset) -> list[int]:
     return [int(info["height"] > info["width"]) for info in infos]
 
 
-def main(argv=None) -> dict:
-    """Runs the training; returns ``do_train``'s record."""
+def main(argv=None, dist_init: str = "env://") -> dict:
+    """Runs the training; returns ``do_train``'s record. ``dist_init`` is
+    the process group's ``init_method`` under ``torchrun``."""
     from ..data.loader import TrainPreprocessor, train_batches
     from ..data.paths_catalog import build_dataset
     from ..data.samplers import training_indices
     from ..engine.trainer import do_train
     from ..models.detectors import build_training_model
+    from ..parallel import ddp
     from ..solver import make_lr_scheduler, make_optimizer
+    from ..utils import comm
     from ..utils.checkpoint import Checkpointer
     from ..utils.logger import setup_logger
     from ..utils.model_ingest import load_reference_weights
@@ -86,42 +92,58 @@ def main(argv=None) -> dict:
         raise SystemExit("train_net: no CUDA card here; --device cpu runs on the CPU")
     cfg = load_config(args)
     method = cfg.MODEL.VID.METHOD if cfg.MODEL.VID.ENABLE else "base"
-    if method not in ("base", "mega"):
-        raise NotImplementedError(f"training of {method!r} is not ported")
-    os.makedirs(args.output_dir, exist_ok=True)
-    logger = setup_logger("mega_pytorch_tpu_torch.train", args.output_dir)
-    logger.info(f"{args.preset} ({method}) on {device}"
-                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    with open(os.path.join(args.output_dir, "config.yml"), "w") as f:
-        f.write(cfg.dump())
+    batch_size = max(cfg.SOLVER.IMS_PER_BATCH, 1)
+    rank, world, device = ddp.init_distributed(device, dist_init)
+    try:
+        ddp.samples_per_rank(batch_size, world)
+        os.makedirs(args.output_dir, exist_ok=True)
+        logger = setup_logger("mega_pytorch_tpu_torch.train", args.output_dir, rank)
+        logger.info(f"{args.preset} ({method}) on {device}"
+                    + (f" ({torch.cuda.get_device_name(device)})"
+                       if device.type == "cuda" else "")
+                    + (f", rank {rank} of {world}" if world > 1 else ""))
+        if comm.is_main_process():
+            with open(os.path.join(args.output_dir, "config.yml"), "w") as f:
+                f.write(cfg.dump())
 
-    model = build_training_model(cfg, device, torch.Generator(device).manual_seed(args.seed))
-    if cfg.MODEL.WEIGHT and os.path.exists(cfg.MODEL.WEIGHT):
-        load_reference_weights(cfg.MODEL.WEIGHT, model, logger)
-        logger.info(f"loaded {cfg.MODEL.WEIGHT}")
-    optimizer = make_optimizer(cfg, model)
-    scheduler = make_lr_scheduler(cfg, optimizer)
-    checkpointer = Checkpointer(args.output_dir, logger)
-    start_iter = 0
-    if args.resume and checkpointer.has_checkpoint():
-        start_iter = checkpointer.restore(
-            checkpointer.load(ignore_optimizer=cfg.MODEL.VID.IGNORE), model, optimizer,
-            scheduler)
+        model = build_training_model(cfg, device,
+                                     torch.Generator(device).manual_seed(args.seed))
+        if cfg.MODEL.WEIGHT and os.path.exists(cfg.MODEL.WEIGHT):
+            load_reference_weights(cfg.MODEL.WEIGHT, model, logger)
+            logger.info(f"loaded {cfg.MODEL.WEIGHT}")
+        optimizer = make_optimizer(cfg, model)
+        scheduler = make_lr_scheduler(cfg, optimizer)
+        checkpointer = Checkpointer(args.output_dir, logger)
+        start_iter = 0
+        if args.resume and checkpointer.has_checkpoint():
+            start_iter = checkpointer.restore(
+                checkpointer.load(ignore_optimizer=cfg.MODEL.VID.IGNORE), model, optimizer,
+                scheduler)
 
-    rng = np.random.RandomState(args.seed)
-    dataset = Concat([build_dataset(name, method=method, is_train=True, data_dir=args.data_dir,
-                                    rng=rng) for name in cfg.DATASETS.TRAIN])
-    prep = TrainPreprocessor(min_size=cfg.INPUT.MIN_SIZE_TRAIN[0],
-                             max_size=cfg.INPUT.MAX_SIZE_TRAIN,
-                             canvas_short=cfg.TPU.CANVAS_HEIGHT,
-                             canvas_long=cfg.TPU.CANVAS_WIDTH, max_gt=cfg.TPU.MAX_GT_BOXES,
-                             hflip_prob=cfg.INPUT.HORIZONTAL_FLIP_PROB_TRAIN, rng=rng)
-    batches = train_batches(dataset, prep, training_indices(
-        len(dataset), orientation_groups(dataset), max(cfg.SOLVER.IMS_PER_BATCH, 1),
-        start_iter=start_iter, max_iter=cfg.SOLVER.MAX_ITER, seed=args.seed))
-    return do_train(cfg, model, batches, optimizer, scheduler, checkpointer, logger,
-                    start_iter=start_iter,
-                    generator=torch.Generator(device).manual_seed(args.seed))
+        rng = ddp.rank_rng(args.seed, rank)
+        if rank > 0:  # rank 0 writes the annotation caches the others read
+            comm.synchronize()
+        dataset = Concat([build_dataset(name, method=method, is_train=True,
+                                        data_dir=args.data_dir, rng=rng)
+                          for name in cfg.DATASETS.TRAIN])
+        if rank == 0:
+            comm.synchronize()
+        prep = TrainPreprocessor(min_size=cfg.INPUT.MIN_SIZE_TRAIN[0],
+                                 max_size=cfg.INPUT.MAX_SIZE_TRAIN,
+                                 canvas_short=cfg.TPU.CANVAS_HEIGHT,
+                                 canvas_long=cfg.TPU.CANVAS_WIDTH, max_gt=cfg.TPU.MAX_GT_BOXES,
+                                 hflip_prob=cfg.INPUT.HORIZONTAL_FLIP_PROB_TRAIN, rng=rng)
+        indices = training_indices(len(dataset), orientation_groups(dataset), batch_size,
+                                   start_iter=start_iter, max_iter=cfg.SOLVER.MAX_ITER,
+                                   seed=args.seed)
+        batches = train_batches(dataset, prep,
+                                (ddp.rank_share(b, rank, world) for b in indices))
+        return do_train(cfg, ddp.wrap(model, device), batches, optimizer, scheduler,
+                        checkpointer, logger, start_iter=start_iter,
+                        generator=torch.Generator(device).manual_seed(
+                            ddp.rank_seed(args.seed, rank)))
+    finally:
+        ddp.destroy_distributed()
 
 
 if __name__ == "__main__":

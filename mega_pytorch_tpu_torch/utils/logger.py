@@ -11,11 +11,14 @@ import sys
 from collections import defaultdict, deque
 
 
-def setup_logger(name: str, save_dir: str | None) -> logging.Logger:
+def setup_logger(name: str, save_dir: str | None, rank: int = 0) -> logging.Logger:
+    """The logger ``name``, writing to stdout and ``save_dir/log.txt``; a
+    process of rank > 0 gets it without handlers (only the main process
+    logs)."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
-    if logger.handlers:
+    if rank > 0 or logger.handlers:
         return logger
     fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
     ch = logging.StreamHandler(stream=sys.stdout)

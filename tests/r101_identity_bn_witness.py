@@ -58,7 +58,7 @@ from mega_pytorch_tpu_torch.solver import make_lr_scheduler, make_optimizer  # n
 from mega_pytorch_tpu_torch.tools.train_bench import (  # noqa: E402
     calibrate_frozen_bn,
     calibration_frames,
-    synthetic_mega_samples,
+    synthetic_samples,
 )
 from mega_pytorch_tpu_torch.utils.bridge import bridge_entries, state_dict_from_flax  # noqa: E402
 
@@ -167,7 +167,7 @@ def main(argv=None):
     torch.set_num_threads(4)
     jcfg, pcfg = _configs()
     rs = np.random.RandomState(0)
-    sample = synthetic_mega_samples(pcfg, FRAME, rs, count=1)[0]
+    sample = synthetic_samples(pcfg, FRAME, rs, count=1)[0]
     params = initial_params(jcfg, sample)
     if args.calibrate:
         params = calibrated(pcfg, params, rs)

@@ -453,9 +453,12 @@ def test_position_bias_kernel_ragged_and_far(cuda, n, m, floor):
 # and 2 global frames): "none" for the global enhancement of the memory
 # pool, of the key ROIs with the local refs, and the residual stage;
 # "input" for the memory pool's two self-enhancement stages and the three
-# local stages
+# local stages; then RDN R-101's (ROI batch 128, cur + 2 refs of 75, 15 of
+# each distilled): the base stages (128, 225) and the final stage (128, 45),
+# its advanced stage (45, 225) sharing the memory pool's first shape
 TRAIN_SHAPES = {"none": [(225, 150), (353, 150), (128, 150)],
-                "input": [(45, 225), (45, 45), (173, 450), (173, 90), (128, 90)]}
+                "input": [(45, 225), (45, 45), (173, 450), (173, 90), (128, 90),
+                          (128, 225), (128, 45)]}
 
 
 def _train_operands(dev, mode, n, m, seed):

@@ -1,9 +1,10 @@
 """The port's training loop on the CPU: the samplers, the datasets' train
-side and ``train_batches`` against the JAX package's for the same
-``RandomState`` (exact); ``do_train`` over tiny MEGA with a checkpoint and a
-resume that restores the saved state bit for bit; and
-``python -m mega_pytorch_tpu_torch.tools.train_net --device cpu``, which
-without ``--device`` takes the card and fails where there is none."""
+side, ``train_batches`` and each method's ``assemble_inputs`` against the
+JAX package's for the same ``RandomState`` (exact); ``do_train`` over tiny
+MEGA with a checkpoint and a resume that restores the saved state bit for
+bit; ``python -m mega_pytorch_tpu_torch.tools.train_net --device cpu``,
+which without ``--device`` takes the card and fails where there is none;
+``train_net`` for RDN, FGFA and DFF."""
 
 import os
 import subprocess
@@ -18,11 +19,16 @@ from mega_pytorch_tpu.data import samplers as jax_samplers
 from mega_pytorch_tpu.data.datasets import vid as jax_vid
 from mega_pytorch_tpu.data.loader import TrainPreprocessor as JaxTrainPreprocessor
 from mega_pytorch_tpu.data.loader import train_batches as jax_train_batches
+from mega_pytorch_tpu.engine.trainer import assemble_inputs as jax_assemble_inputs
 from mega_pytorch_tpu_torch.config import get_preset
 from mega_pytorch_tpu_torch.data import samplers
 from mega_pytorch_tpu_torch.data.datasets import vid
-from mega_pytorch_tpu_torch.data.loader import TrainPreprocessor, train_batches
-from mega_pytorch_tpu_torch.engine.trainer import do_train
+from mega_pytorch_tpu_torch.data.loader import (
+    EvalPreprocessor,
+    TrainPreprocessor,
+    train_batches,
+)
+from mega_pytorch_tpu_torch.engine.trainer import assemble_inputs, do_train
 from mega_pytorch_tpu_torch.models.detectors import build_training_model
 from mega_pytorch_tpu_torch.solver import make_lr_scheduler, make_optimizer
 from mega_pytorch_tpu_torch.tools import train_net
@@ -218,3 +224,84 @@ def test_train_net_cli(tiny_root, tmp_path):
     assert proc.returncode != 0
     assert "no CUDA card" in proc.stderr
     assert not (tmp_path / "card" / "model_final.pth").exists()
+
+
+_METHOD_CLASSES = {"base": "VIDDataset", "rdn": "VIDRDNDataset", "fgfa": "VIDFGFADataset",
+                   "dff": "VIDDFFDataset", "mega": "VIDMEGADataset"}
+
+
+@pytest.mark.parametrize("method", list(_METHOD_CLASSES))
+def test_assemble_inputs_equal_jax(tiny_root, method):
+    """A preprocessed training sample of each method → the same frames, sizes
+    and ground truth as the JAX ``assemble_inputs`` (its ImageBatch fields)."""
+    ds = getattr(vid, _METHOD_CLASSES[method])(**dataset_args(tiny_root), is_train=True,
+                                              rng=np.random.RandomState(2))
+    sample = TrainPreprocessor(**PREP, rng=np.random.RandomState(3))(ds[4])
+    got, got_gt = assemble_inputs(method, sample)
+    want, want_gt = jax_assemble_inputs(method, sample)
+
+    def fields(x):
+        if isinstance(x, dict):
+            return {k: fields(v) for k, v in x.items()}
+        return tuple(x) if isinstance(x, tuple) else (x.tensors, x.sizes)
+
+    _assert_same(fields(got), fields(want), method)
+    _assert_same(got_gt, want_gt, method)
+    frames = {"base": 1, "rdn": 3, "fgfa": 3, "dff": 2}.get(method)
+    if frames:
+        assert got[0].shape == (frames, 48, 64, 3) and got[1].shape == (frames, 2)
+
+
+def test_train_preprocessor_needs_rng():
+    """The training preprocessor refuses to draw its flips without an
+    explicit RandomState; the evaluation one (no flips) needs none."""
+    with pytest.raises(ValueError, match="rng"):
+        TrainPreprocessor(**PREP)
+    frame = (np.random.RandomState(0).rand(48, 64, 3) * 255).astype(np.uint8)
+    out = EvalPreprocessor(**PREP)({"cur": frame, "gt": {
+        "boxes": np.zeros((0, 4), np.float32), "labels": np.zeros(0, np.int64),
+        "im_info": (48, 64)}})
+    assert out["cur"].shape == (1, 48, 64, 3)
+
+
+@pytest.mark.parametrize("preset, extra", [
+    # the channel reduce keeps fc0 12544 wide (R-101's presets pool 2048
+    # channels: 100352), and FGFA's and DFF's fc6 (100352 inputs) stays 64
+    # wide, so that the checkpoints stay small
+    ("rdn_R_101", ["SOLVER.IMS_PER_BATCH", "2", "MODEL.VID.ROI_BOX_HEAD.REDUCE_CHANNEL",
+                   "True"]),
+    ("fgfa_R_50", ["MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", "64"]),
+    ("dff_R_50", ["MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", "64"]),
+])
+def test_train_net_methods(tiny_root, tmp_path, preset, extra):
+    """``train_net --device cpu`` trains RDN (with the advanced stage, two
+    samples an iteration in turn), FGFA and DFF at tiny widths: finite
+    losses, a checkpoint every iteration, and against the seeded initial
+    weights every trainable module moved (FlowNetS and the embedding net
+    included), the frozen stem and layer1 and the FrozenBN statistics
+    kept."""
+    data_dir = _train_tree(tiny_root, tmp_path)
+    out = tmp_path / "out"
+    opts = TRAIN_OPTS + extra
+    record = train_net.main(["--preset", preset, "--data-dir", str(data_dir), "--output-dir",
+                             str(out), "--device", "cpu", "opts", *opts])
+    assert record["iteration"] == 2
+    assert all(np.isfinite(v) for losses in record["losses"] for v in losses.values())
+    for name in ("model_0000001.pth", "model_0000002.pth", "model_final.pth"):
+        assert (out / name).exists(), name
+    cfg = get_preset(preset)
+    cfg.merge_from_list(opts)
+    initial = build_training_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    final = torch.load(out / "model_final.pth", weights_only=True)["model"]
+    params = dict(initial.named_parameters())
+    moved = {}
+    for name, value in initial.state_dict().items():
+        same = torch.equal(final[name], value)
+        if name in params and params[name].requires_grad:
+            top = name.split(".")[0] if not name.startswith("backbone.") else name[:15]
+            moved[top] = moved.get(top, False) or not same
+        else:
+            assert same, name
+    assert all(moved.values()) and len(moved) >= 5, moved
+    if preset.startswith(("fgfa", "dff")):
+        assert moved["flownet"] and moved.get("embednet", preset.startswith("dff"))

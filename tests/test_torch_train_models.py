@@ -171,20 +171,21 @@ def test_base_forward_train_equals_jax():
 
     pc, _ = port_configs(c, TINY_V)
     model = _port_train_model(port_rcnn.GeneralizedRCNN, params, pc)
-    got = model.forward_train(torch.from_numpy(frames), torch.from_numpy(_sizes(1)),
-                              _port_gt(), torch.Generator().manual_seed(0))
+    got = model((torch.from_numpy(frames), torch.from_numpy(_sizes(1))), _port_gt(),
+                torch.Generator().manual_seed(0))
     sum(got.values()).backward()
     _compare(losses, grads, movement, model, got)
 
 
-@pytest.mark.parametrize("method", ["base", "mega"])
+@pytest.mark.parametrize("method", ["base", "rdn", "fgfa", "dff", "mega"])
 def test_training_model_build(method):
-    """``build_training_model``: f32 weights, train mode, the stem and
-    layer1 frozen, every other parameter trainable, FrozenBN as buffers."""
+    """``build_training_model`` for every method: f32 weights, train mode,
+    the stem and layer1 frozen, every other parameter trainable (FlowNetS
+    and the embedding net included), FrozenBN as buffers."""
     from mega_pytorch_tpu_torch.config import get_preset
     from mega_pytorch_tpu_torch.models.detectors import build_training_model
 
-    cfg = get_preset(f"{method}_R_50")
+    cfg = get_preset(f"{method}_base_R_50" if method == "rdn" else f"{method}_R_50")
     cfg.merge_from_list(["MODEL.BACKBONE.CONV_BODY", "R-14-C4"])
     model = build_training_model(cfg, "cpu", torch.Generator().manual_seed(0))
     assert model.training and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
