@@ -69,7 +69,8 @@ Phases, each printing its own lines:
      synthetic motion-IoU table (finite AP50 in the four buckets; random
      weights make the values meaningless) and ``write_result``; then base
      R-101 through the serial engine over the 10-frame first video (f32
-     canvases, canonical stem, no kernel launch). Prints the host resize's
+     canvases packed s2d(4) by ``pack_factor``: one stem pool launch a
+     frame, nothing else). Prints the host resize's
      ms a frame, the whole run's frames/s and ms/step, and the producer's
      time a batch against the step;
   12. train kernels: modes "none" and "input" through their autograd
@@ -102,7 +103,34 @@ Phases, each printing its own lines:
      run twice for the card's own spread and once with the last sample
      left out (a planted fault); each tensor's update in two DDP runs (the
      second warm) within max(1e-5, 8x the spread) of the plain one's,
-     relative to its largest, and the fault above that bound.
+     relative to its largest, and the fault above that bound;
+  16. pos function: mode "compute" through its autograd Function at one
+     lane of MEGA stage 0 (675, 3750) and of RDN's base stages (300, 2775,
+     uk = 0), Wg's bias raised by 2: one launch, the forward bit for bit
+     the kernel's, the eight gradients within 1e-6 of each leaf's largest
+     magnitude from autograd through the bf16-sinusoid plain version;
+     forward and backward times;
+  17. tta: base R-101 (bf16) through ``tools/test_net.py``'s ``main`` with
+     ``TEST.BBOX_AUG`` (scales 400-1200 and the base size, each flipped:
+     18 runs a frame) over 3 JPEG frames of 720x1280 on disk: the run
+     count, the detection cap, boxes inside the image, 18 stem pool
+     launches in every frame and no other kernel; ms a warm frame (the
+     first, which meets 18 new canvas shapes, left out), split into the
+     host's preprocessing, the detector runs and the rest;
+  18. demo: ``tools/demo.py``'s ``main`` with ``mega_R_101`` (bf16,
+     608x1024, packed) over 12 JPEG frames of 720x1280: 12 annotated frames
+     of the input size written, detections bit for bit those of
+     ``StreamingInferencer`` on the same frames, the stem pool, "none" and
+     "compute" launched; ms a frame, split into the serial engine's steps
+     and the rest;
+  19. gn: ``base_R_50`` with group norm (bf16, packed frames) against
+     itself in f32 on RGB frames, and its f32 packed route against the
+     canonical one; no stem pool launch; an R-101 32x8d C4 body
+     (``build_resnet_c4``) timed;
+  20. native loader, information only: whether ``data/native_loader.py``
+     builds here (g++, libjpeg) and why not; if it does, ``load_batch``
+     equal to ``load_frame`` frame by frame and both timed beside the PIL
+     path.
 Each phase prints its seconds. The last two lines are the kernel table and
 the device record as JSON. Any failed check raises, and the script exits
 non-zero.
@@ -207,6 +235,29 @@ METHOD_TRAIN = {
 # the one-rank NCCL DDP step (phase 15): iterations of rdn_R_101 against
 # the plain step (tools/ddp_check.py states the bound)
 DDP_ITERS = 2
+# the "compute" Function (phase 16), one lane: (label, N, M, u bias)
+POS_FUNCTION_SHAPES = (("MEGA stage 0", 675, 3750, True), ("RDN base stages", 300, 2775, False))
+# its gradients against autograd through the bf16-sinusoid plain version,
+# which its backward recomputes on the same operands: equal to the last bit
+# unless the library takes another algorithm for a product; 1e-6 of each
+# leaf's largest magnitude
+RTOL_POS_GRAD = 1e-6
+# test-time augmentation through test_net (phase 17): maskrcnn-benchmark's
+# TTA example scales, each run plain and flipped with the base size: 18
+# detector runs a frame
+TTA_SCALES = (400, 500, 600, 700, 900, 1000, 1100, 1200)
+TTA_FRAMES, TTA_RUNS = 3, 2 + 2 * len(TTA_SCALES)
+# the frame-folder demo (phase 18) and the native loader (phase 20)
+DEMO_FRAMES = 12
+# the GN R-50 C4 body (phase 19) on packed frames against itself in f32 on
+# RGB frames (TF32 off). In f32 the two stem routes are the same sums in
+# another order: RTOL_GN_F32 of the largest magnitude. In bf16, 8 bits
+# (2^-9 relative rounding) at each of ~40 convolutions and norms add up
+# through 13 residual blocks: on the CPU at 160x256 the bf16 body sat
+# 2.7e-2 to 4.6e-2 of the largest magnitude (largest error) and 3.3e-2 to
+# 3.7e-2 of the mean magnitude (mean error) from the f32 one, so the bounds
+# are about twice those
+RTOL_GN_F32, RTOL_GN_MAX, RTOL_GN_MEAN = 1e-4, 1e-1, 6e-2
 
 
 def _fail(msg: str):
@@ -1275,13 +1326,14 @@ def run_eval_path(dev, cfg, base_cfg, frame_hw, lengths, portrait, lanes, smi, t
         finite = all(np.isfinite(p["boxes"]).all() and np.isfinite(p["scores"]).all()
                      for p in base_preds.values())
         print(f"[{tag}] base ({base_cfg.MODEL.BACKBONE.CONV_BODY}) through the serial engine "
-              f"over video 0 ({len(video)} frames, f32 canvases, canonical stem): "
+              f"over video 0 ({len(video)} frames, f32 canvases packed s2d(4)): "
               f"{len(base_preds)} frames predicted, finite {finite}, "
               f"{len(video) / base_s:.2f} frames/s, launches {base_launches}; {smi}")
         if sorted(base_preds) != video or not finite:
             _fail(f"{tag}: the base method's serial run did not predict every frame")
-        if any(base_launches.values()):
-            _fail(f"{tag}: the serial base run launched {base_launches}")
+        if base_launches != dict(_NO_KERNEL, stem_pool_packed=len(video)):
+            _fail(f"{tag}: the serial base run launched {base_launches}, not one stem pool "
+                  f"a frame")
         del base
     return launches, per_step, lane["ms_per_step"], base_launches
 
@@ -1655,6 +1707,482 @@ def phase_method_training(smi):
             for method, (preset, dataset_name, per_iter) in METHOD_TRAIN.items()}
 
 
+def phase_pos_function():
+    """Mode "compute" through ``RelationAttentionPosFunction`` at one lane of
+    MEGA stage 0 and of RDN's base stages (uk = 0): one launch, the forward
+    bit for bit the kernel's, nothing launched in backward, and the eight
+    gradients (q, k, v, uk, rois, refs, Wg's kernel and bias) against
+    ``torch.autograd.grad`` through the plain version with bf16 sinusoids,
+    each within RTOL_POS_GRAD of its leaf's largest magnitude; the forward
+    and backward timed against the plain version's. Wg's bias is raised by
+    2 (as the card tests' ``_pos``): at pw's relu floor the function is
+    ill-conditioned in the sinusoids' last bits, where one bf16 step of a
+    sinusoid switches pw between 0 and a small value. Returns one entry a
+    shape."""
+    import torch
+    from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
+    from mega_pytorch_tpu_torch.tools.kernel_bench import time_alternating
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(9)
+    names = ("q", "k", "v", "uk", "rois", "refs", "wk", "wb")
+    launch, fn = ra.flash_relation_attention_pos, ra.RelationAttentionPosFunction
+    entries = []
+    for label, n, m, u_bias in POS_FUNCTION_SHAPES:
+        x = _attention_inputs(gen, 1, n, m, dev)
+        if not u_bias:
+            x["uk"] = torch.zeros_like(x["uk"])
+        x["wb"] = x["wb"] + 2.0
+        ops, valid = [x[k] for k in names], x["valid"]
+        kernel_out = launch(*ops, valid)
+        leaves = [t.clone().requires_grad_() for t in ops]
+        before = launch.launches
+        out = fn.apply(*leaves, valid, launch)
+        cot = torch.randn(out.shape, generator=gen, device=dev)
+        grads = torch.autograd.grad(out, leaves, cot)
+        launched = launch.launches - before
+        same_fwd = torch.equal(out.detach(), kernel_out)
+        plain = ra.reference_relation_attention_pos(*leaves, valid, sin_dtype=torch.bfloat16)
+        want = torch.autograd.grad(plain, leaves, cot)
+        errs = {name: (g.float() - w.float()).abs().max().item()
+                / max(w.float().abs().max().item(), 1e-30)
+                for name, g, w in zip(names, grads, want)}
+        bit = all(torch.equal(g, w) for g, w in zip(grads, want))
+        dtypes = all(g.dtype == t.dtype for g, t in zip(grads, leaves))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        del plain, want, grads, out
+
+        def fwd():
+            return fn.apply(*leaves, valid, launch)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fn.apply(*leaves, valid, launch), leaves, cot)
+
+        def plain_fwd():
+            return ra.reference_relation_attention_pos(*leaves, valid,
+                                                       sin_dtype=torch.bfloat16)
+
+        def plain_fwd_bwd():
+            return torch.autograd.grad(plain_fwd(), leaves, cot)
+
+        pf, kf, pfb, kfb = time_alternating([plain_fwd, fwd, plain_fwd_bwd, fwd_bwd], 5, 3)
+        entry = dict(stage=label, B=1, N=n, M=m, fwd_ms=kf, bwd_ms=kfb - kf,
+                     plain_fwd_ms=pf, plain_bwd_ms=pfb - pf,
+                     grad_rel_err=max(errs.values()), grads_bit_equal=bit)
+        print(f"[pos function] {label} N={n} M={m} B=1 (uk {'drawn' if u_bias else '0'}, Wg "
+              f"bias + 2): launches {launched}, forward == kernel bit for bit {same_fwd}; "
+              f"gradients vs autograd through the bf16-sinusoid plain version, largest "
+              f"relative error per leaf "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tolerance {RTOL_POS_GRAD}), bit for bit {bit}; forward {kf:.4f} ms "
+              f"(plain {pf:.4f}), backward {kfb - kf:.4f} ms (plain {pfb - pf:.4f})")
+        if launched != 1 or not same_fwd or not dtypes or not finite:
+            _fail(f"pos function ({label}): launches {launched}, forward equal {same_fwd}, "
+                  f"dtypes {dtypes}, finite {finite}")
+        if not all(e <= RTOL_POS_GRAD for e in errs.values()):
+            _fail(f"pos function ({label}): gradients {errs} beyond {RTOL_POS_GRAD}")
+        entries.append(entry)
+        del x, ops, leaves
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _draw_frames(rs, n, frame_hw):
+    """n uint8 RGB frames: a smooth gradient with a few coloured boxes that
+    move from frame to frame (frames a JPEG encoder compresses as it would
+    a video's, unlike noise)."""
+    h, w = frame_hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 200 // w, yy * 200 // h, (xx + yy) * 100 // (h + w)], -1)
+    boxes = [(rs.randint(0, h // 2), rs.randint(0, w // 2), rs.randint(h // 12, h // 4),
+              rs.randint(w // 12, w // 4), rs.randint(0, 256, 3), rs.randint(-8, 9, 2))
+             for _ in range(4)]
+    frames = []
+    for f in range(n):
+        img = base.astype(np.uint8).copy()
+        for y, x, bh, bw, color, (dy, dx) in boxes:
+            y0, x0 = np.clip(y + dy * f, 0, h - bh), np.clip(x + dx * f, 0, w - bw)
+            img[y0:y0 + bh, x0:x0 + bw] = color
+        frames.append(img)
+    return frames
+
+
+def _write_jpegs(folder: Path, frames):
+    """frames → ``folder/{i:06d}.JPEG`` (PIL, quality 90)."""
+    from PIL import Image
+
+    folder.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, arr in enumerate(frames):
+        paths.append(folder / f"{i:06d}.JPEG")
+        Image.fromarray(arr).save(paths[-1], quality=90)
+    return paths
+
+
+def phase_tta(smi):
+    """Test-time augmentation through ``tools/test_net.py``'s ``main``: the
+    ``base_R_101`` preset (bf16, 608x1024 canvas, random weights from seed
+    0) over an on-disk ILSVRC2015 tree of one video of TTA_FRAMES JPEG
+    frames of 720x1280 (index, XML annotations, files decoded by PIL), with
+    ``TEST.BBOX_AUG`` on, ``H_FLIP`` and ``SCALE_H_FLIP``, TTA_SCALES and
+    ``MAX_SIZE`` 2000: every frame runs the detector TTA_RUNS times and
+    launches the stem pool TTA_RUNS times (counted per frame), the merged
+    detections capped at TEST.DETECTIONS_PER_IMG and inside the image,
+    evaluation run. Each frame's ``im_detect_bbox_aug`` (after the decode)
+    is timed whole, with its host preprocessing (``preprocess_image``: the
+    resize and the canvas) and its detector runs (``forward_test``, the
+    device synchronised on both sides) apart; the first frame meets every
+    canvas shape for the first time, so the reported ms are the median of
+    the frames after it. Returns (launches, launches a frame, ms a frame)."""
+    import tempfile
+
+    import torch
+    from mega_pytorch_tpu_torch.engine import bbox_aug
+    from mega_pytorch_tpu_torch.models.detectors.rcnn import GeneralizedRCNN
+    from mega_pytorch_tpu_torch.tools import test_net
+
+    rs = np.random.RandomState(17)
+    kernels = _kernels()
+    stem = next(k for k in kernels if k.__name__ == "stem_pool_packed")
+    calls, prep_s, runs_s, frames = [0], [0.0], [0.0], []
+    forward_test, detect = GeneralizedRCNN.forward_test, bbox_aug.im_detect_bbox_aug
+    preprocess = bbox_aug.preprocess_image
+
+    def counted(self, *a):
+        calls[0] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward_test(self, *a)
+        torch.cuda.synchronize()
+        runs_s[0] += time.perf_counter() - t0
+        return out
+
+    def timed_preprocess(*a, **k):
+        t0 = time.perf_counter()
+        out = preprocess(*a, **k)
+        prep_s[0] += time.perf_counter() - t0
+        return out
+
+    def timed_frame(*a, **k):
+        prep_s[0] = runs_s[0] = 0.0
+        before = stem.launches
+        t0 = time.perf_counter()
+        out = detect(*a, **k)  # host arrays: the device has finished
+        ms = (time.perf_counter() - t0) * 1e3
+        frames.append(dict(ms=ms, prep_ms=prep_s[0] * 1e3, runs_ms=runs_s[0] * 1e3,
+                           stem_pools=stem.launches - before))
+        return out
+
+    opts = ["TEST.BBOX_AUG.ENABLED", "True", "TEST.BBOX_AUG.H_FLIP", "True",
+            "TEST.BBOX_AUG.SCALE_H_FLIP", "True", "TEST.BBOX_AUG.SCALES", str(TTA_SCALES),
+            "TEST.BBOX_AUG.MAX_SIZE", "2000"]
+    patched = (counted, timed_frame, timed_preprocess)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _write_vid_tree(root, [TTA_FRAMES], [False], EVAL_FRAME, rs,
+                        index="VID_val_frames.txt")
+        _write_jpegs(root / "ILSVRC2015" / "Data" / "VID" / "val" / "v000",
+                     _draw_frames(rs, TTA_FRAMES, EVAL_FRAME))
+        for k in kernels:
+            k.launches = 0
+        (GeneralizedRCNN.forward_test, bbox_aug.im_detect_bbox_aug,
+         bbox_aug.preprocess_image) = patched
+        try:
+            t0 = time.perf_counter()
+            run = test_net.main(["--preset", "base_R_101", "--data-dir", tmp, "--output-dir",
+                                 str(root / "out"), "--device", "cuda", "opts", *opts])
+            wall = time.perf_counter() - t0
+        finally:
+            (GeneralizedRCNN.forward_test, bbox_aug.im_detect_bbox_aug,
+             bbox_aug.preprocess_image) = forward_test, detect, preprocess
+        launches = {k.__name__: k.launches for k in kernels}
+    preds = run["predictions"]
+    cap = 300  # the preset's TEST.DETECTIONS_PER_IMG
+    h, w = EVAL_FRAME
+    counts = [len(p["boxes"]) for p in preds.values()]
+    inside = all(np.isfinite(p["boxes"]).all() and (not len(p["boxes"]) or (
+        p["boxes"][:, [0, 2]].max() <= w + 1 and p["boxes"][:, [1, 3]].max() <= h + 1
+        and p["boxes"].min() >= -1)) for p in preds.values())
+    expect = dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS * TTA_FRAMES)
+    warm = {k: statistics.median(f[k] for f in frames[1:]) for k in ("ms", "prep_ms", "runs_ms")}
+    rest = warm["ms"] - warm["prep_ms"] - warm["runs_ms"]
+    per_frame = "; ".join(f"{f['ms']:.1f} ms (preprocessing {f['prep_ms']:.1f}, runs "
+                          f"{f['runs_ms']:.1f}), {f['stem_pools']} stem pools" for f in frames)
+    print(f"[tta] base_R_101 (bf16) through test_net.main, TEST.BBOX_AUG: the base size and "
+          f"scales {TTA_SCALES}, each with its flip, MAX_SIZE 2000, {TTA_FRAMES} JPEG frames of "
+          f"{h}x{w}: {calls[0]} detector runs ({TTA_RUNS} a frame expected), detections a "
+          f"frame {counts} (cap {cap}), inside the image {inside}; launches {launches} "
+          f"(expected {expect}); per frame (after the decode): {per_frame}; warm frames "
+          f"(median of frames 2..{TTA_FRAMES}): {warm['ms']:.1f} ms a frame = host "
+          f"preprocessing {warm['prep_ms']:.1f} ({TTA_RUNS} resizes and canvases) + detector "
+          f"runs {warm['runs_ms']:.1f} (synchronised) + the rest {rest:.1f} (packing, copies, "
+          f"merge); main {wall:.1f} s with the model's build; AP50 "
+          f"{run['result']['all']['map']:.4f} (random weights); {smi}")
+    if calls[0] != TTA_RUNS * TTA_FRAMES or sorted(preds) != list(range(TTA_FRAMES)):
+        _fail(f"tta: {calls[0]} detector runs over {sorted(preds)}")
+    if max(counts) > cap or not inside:
+        _fail("tta: detections beyond the cap or outside the image")
+    if launches != expect or [f["stem_pools"] for f in frames] != [TTA_RUNS] * TTA_FRAMES:
+        _fail(f"tta: launches {launches} != {expect}, or not {TTA_RUNS} stem pools in "
+              f"every frame ({[f['stem_pools'] for f in frames]})")
+    torch.cuda.empty_cache()
+    return launches, dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS), warm["ms"]
+
+
+def phase_demo(smi):
+    """The frame-folder demo: DEMO_FRAMES JPEG frames of 720x1280 through
+    ``tools/demo.py``'s ``main`` with the ``mega_R_101`` preset (bf16,
+    608x1024 canvas, random weights from seed 0, s2d(4)-packed canvases):
+    every frame annotated and written at the input size, the stem pool,
+    "none" and "compute" launched, one detection a frame (the attention
+    counts a multiple of the frames), and its detections bit for bit those
+    of ``StreamingInferencer`` over the same frames with the same seeded
+    model and preprocessor. The run is timed whole, with the serial
+    engine's steps (``StreamingInferencer.step``, the device synchronised on
+    both sides; frame 0's step holds the window's read-ahead and the global
+    frames) apart from the rest (decodes, preprocessing, drawing, writing).
+    Returns (launches, ms a frame)."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from mega_pytorch_tpu_torch.config import get_preset
+    from mega_pytorch_tpu_torch.data.loader import eval_preprocessor
+    from mega_pytorch_tpu_torch.engine.batched_inference import _to_host, pack_factor
+    from mega_pytorch_tpu_torch.engine.inference import StreamingInferencer, _extract
+    from mega_pytorch_tpu_torch.models.detectors import build_detection_model
+    from mega_pytorch_tpu_torch.tools import demo
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(19)
+    kernels = _kernels()
+    wall, steps_s = [], [0.0]
+    run_demo, step = demo.run_demo, StreamingInferencer.step
+
+    def timed_run(*a, **k):
+        t0 = time.perf_counter()
+        out = run_demo(*a, **k)  # host arrays and written files: the device has finished
+        wall.append(time.perf_counter() - t0)
+        return out
+
+    def timed_step(self, sample):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(self, sample)
+        torch.cuda.synchronize()
+        steps_s[0] += time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder, out_dir = Path(tmp) / "frames", Path(tmp) / "vis"
+        _write_jpegs(folder, _draw_frames(rs, DEMO_FRAMES, EVAL_FRAME))
+        for k in kernels:
+            k.launches = 0
+        demo.run_demo, StreamingInferencer.step = timed_run, timed_step
+        try:
+            run = demo.main(["--preset", "mega_R_101", "--input-folder", str(folder),
+                             "--output-folder", str(out_dir), "--device", "cuda",
+                             "--confidence-threshold", "0.05"])
+        finally:
+            demo.run_demo, StreamingInferencer.step = run_demo, step
+        launches = {k.__name__: k.launches for k in kernels}
+        written = sorted(out_dir.iterdir())
+        sizes = set()
+        for p in written:
+            with Image.open(p) as im:
+                sizes.add(im.size)
+        cfg = get_preset("mega_R_101").freeze()
+        model = build_detection_model(cfg, dev, torch.Generator(dev).manual_seed(0))
+        video = demo.FolderVideo(str(folder))
+        ds = demo.VideoDataset(video, "mega", cfg)
+        prep = eval_preprocessor(cfg)
+        runner = StreamingInferencer(model, "mega", prep, ds)
+        want = {}
+        for i in range(len(ds)):
+            sample = prep(ds[i])
+            want[i] = _extract(_to_host(runner.step(sample)), sample["cur_size"][0],
+                               EVAL_FRAME)
+    preds = run["predictions"]
+    same = sorted(preds) == sorted(want) and all(
+        np.array_equal(preds[i][k], want[i][k]) for i in want
+        for k in ("boxes", "scores", "labels"))
+    ms = wall[0] * 1e3 / DEMO_FRAMES
+    steps_ms = steps_s[0] * 1e3 / DEMO_FRAMES
+    h, w = EVAL_FRAME
+    packed = pack_factor("mega", (cfg.TPU.CANVAS_HEIGHT, cfg.TPU.CANVAS_WIDTH))
+    print(f"[demo] mega_R_101 (bf16, packed s2d({packed})) over {DEMO_FRAMES} JPEG frames of "
+          f"{h}x{w}: {len(written)} annotated frames written, sizes {sorted(sizes)}; "
+          f"detections == StreamingInferencer's bit for bit {same} "
+          f"({sum(len(p['boxes']) for p in preds.values())} boxes); launches {launches}; "
+          f"{ms:.1f} ms a frame end to end = the engine's steps {steps_ms:.1f} (synchronised) "
+          f"+ the rest {ms - steps_ms:.1f} (decodes, preprocessing, drawing, writing); {smi}")
+    if len(written) != DEMO_FRAMES or sizes != {(w, h)}:
+        _fail(f"demo: {len(written)} frames of sizes {sizes} written")
+    if not same:
+        _fail("demo: detections differ from StreamingInferencer's")
+    path_kernels = ("stem_pool_packed", "flash_relation_attention",
+                    "flash_relation_attention_pos")
+    if (not all(launches[k] > 0 for k in path_kernels)
+            or launches["flash_relation_attention_bias"] or launches["fused_position_bias"]
+            or launches["flash_relation_attention"] % DEMO_FRAMES
+            or launches["flash_relation_attention_pos"] % DEMO_FRAMES):
+        _fail(f"demo: launches {launches}")
+    del model, runner
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def phase_gn(smi):
+    """Group norm: ``base_R_50`` with ``BottleneckWithGN`` / ``StemWithGN``
+    (bf16, random weights from seed 0) on 2 s2d(4)-packed 608x1024 frames:
+    its C4 map against the same weights in f32 on the canonical RGB frames
+    (TF32 off) within RTOL_GN_MAX / RTOL_GN_MEAN, the f32 model's packed
+    route against its canonical one within RTOL_GN_F32, no stem pool
+    launch, ``forward_test`` finite; then ``build_resnet_c4`` of R-101 with
+    NUM_GROUPS 32 and WIDTH_PER_GROUP 8 (the X-101-32x8d widths, frozen BN)
+    timed on one packed frame. Returns the GN detector's launches."""
+    import torch
+    from mega_pytorch_tpu_torch.config import get_preset
+    from mega_pytorch_tpu_torch.data.transforms import normalize_u8_frames, s2d_pack_frames
+    from mega_pytorch_tpu_torch.models.backbone.resnet import build_resnet_c4
+    from mega_pytorch_tpu_torch.models.detectors import build_detection_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    opts = ["MODEL.RESNETS.TRANS_FUNC", "BottleneckWithGN",
+            "MODEL.RESNETS.STEM_FUNC", "StemWithGN"]
+    models = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_preset("base_R_50")
+        cfg.merge_from_list(opts + ["TPU.COMPUTE_DTYPE", dtype])
+        models[dtype] = build_detection_model(cfg.freeze(), dev,
+                                              torch.Generator(dev).manual_seed(0))
+    rs = np.random.RandomState(21)
+    raw = _draw_frames(rs, 2, CANVAS)
+    sizes = torch.tensor(CANVAS, dtype=torch.float32, device=dev).expand(2, 2)
+    kernels = _kernels()
+    with torch.inference_mode():
+        x48 = normalize_u8_frames(torch.from_numpy(s2d_pack_frames(np.stack(raw), 4)).to(dev),
+                                  sizes)
+        x3 = normalize_u8_frames(torch.from_numpy(np.stack(raw)).to(dev), sizes)
+        for k in kernels:
+            k.launches = 0
+        got = models["bfloat16"].backbone(x48).float()
+        dets = models["bfloat16"].forward_test(x48, sizes)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        packed32 = models["float32"].backbone(x48)
+        torch.cuda.synchronize()
+        launches_f32 = sum(k.launches for k in kernels)
+        want = models["float32"].backbone(x3)
+    err = (got - want).abs()
+    scale = want.abs()
+    rel_max, rel_mean = (err.max() / scale.max()).item(), (err.mean() / scale.mean()).item()
+    rel_f32 = ((packed32 - want).abs().max() / scale.max()).item()
+    finite = bool(torch.isfinite(dets.boxes).all() and torch.isfinite(dets.scores).all())
+    print(f"[gn] base_R_50 with group norm on 2 {CANVAS[0]}x{CANVAS[1]} frames, C4 map "
+          f"{tuple(got.shape)}, against f32 on the RGB frames: f32 on the packed frames "
+          f"{rel_f32:.3e} of the largest magnitude (tolerance {RTOL_GN_F32}); bf16 on the "
+          f"packed frames largest error {rel_max:.3e} of the largest magnitude (tolerance "
+          f"{RTOL_GN_MAX}), mean error {rel_mean:.3e} of the mean magnitude (tolerance "
+          f"{RTOL_GN_MEAN}); forward_test finite {finite}; launches {launches} (f32 packed "
+          f"route: {launches_f32}); {smi}")
+    if launches != _NO_KERNEL or launches_f32:
+        _fail(f"gn: launches {launches}, {launches_f32}: the GN stem must take no kernel")
+    if not (rel_f32 <= RTOL_GN_F32 and rel_max <= RTOL_GN_MAX
+            and rel_mean <= RTOL_GN_MEAN) or not finite:
+        _fail("gn: the GN backbone differs from its f32 canonical self or is not finite")
+    del models, dets
+    torch.cuda.empty_cache()
+
+    cfg = get_preset("base_R_101")
+    cfg.merge_from_list(["MODEL.RESNETS.NUM_GROUPS", "32", "MODEL.RESNETS.WIDTH_PER_GROUP",
+                         "8"])
+    body = build_resnet_c4(cfg.freeze(), dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    for m in body.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    for m in body.modules():
+        if hasattr(m, "cast_weights_"):
+            m.cast_weights_()
+    body.eval().requires_grad_(False)
+    ms = []
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c4 = body(x48[:1])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[gn] build_resnet_c4 R-101 32x8d (NUM_GROUPS 32, WIDTH_PER_GROUP 8, bf16, "
+          f"frozen BN): C4 map {tuple(c4.shape)} finite {bool(torch.isfinite(c4).all())}, "
+          f"median {statistics.median(ms[1:]):.2f} ms a packed {CANVAS[0]}x{CANVAS[1]} frame "
+          f"(first call {ms[0]:.1f} ms); {smi}")
+    if tuple(c4.shape) != (1, CANVAS[0] // 16, CANVAS[1] // 16, 1024) or not bool(
+            torch.isfinite(c4).all()):
+        _fail("gn: the 32x8d C4 body's output is wrong")
+    del body
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_native_loader(smi):
+    """Information only: whether the native JPEG loader builds on this
+    machine (g++, libjpeg's jpeglib.h), and the reason if not. If it builds,
+    ``load_batch`` of DEMO_FRAMES 720x1280 JPEG frames must equal
+    ``load_frame`` frame by frame; both are timed beside the port's PIL
+    decode and PIL-exact resize. Host code: a missing toolchain does not
+    fail the check."""
+    import tempfile
+
+    from mega_pytorch_tpu_torch.config import get_preset
+    from mega_pytorch_tpu_torch.data import native_loader
+    from mega_pytorch_tpu_torch.data.datasets.vid import decode_rgb
+    from mega_pytorch_tpu_torch.data.transforms import preprocess_image
+
+    try:
+        native_loader.get_lib()
+    except subprocess.CalledProcessError as e:
+        reason = " ".join(str(e.stderr).split())[-300:]
+        print(f"[loader] unavailable: g++ failed: {reason}")
+        return {"built": False, "reason": f"g++ failed: {reason}"}
+    except OSError as e:
+        print(f"[loader] unavailable: {e}")
+        return {"built": False, "reason": str(e)}
+    rs = np.random.RandomState(23)
+    cfg = get_preset("mega_R_101")  # the demo's sizes: 600 / 1000 on the 608x1024 canvas
+    args = (cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    canvas = (cfg.TPU.CANVAS_HEIGHT, cfg.TPU.CANVAS_WIDTH)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(p) for p in _write_jpegs(Path(tmp), _draw_frames(rs, DEMO_FRAMES,
+                                                                     EVAL_FRAME))]
+        flips = [False] * len(paths)
+        t0 = time.perf_counter()
+        batch, hws = native_loader.load_batch(paths, *args, flips, *canvas)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        t0 = time.perf_counter()
+        frames = [native_loader.load_frame(p, *args, False, *canvas) for p in paths]
+        frame_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        t0 = time.perf_counter()
+        pil = [preprocess_image(decode_rgb(p), *args, False, *canvas) for p in paths]
+        pil_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    same = all(np.array_equal(batch[i], f) and tuple(hws[i]) == hw
+               for i, (f, hw) in enumerate(frames))
+    oh, ow = frames[0][1]
+    diff = float(np.abs(batch[0][:oh, :ow] - pil[0].image[:oh, :ow]).mean())
+    print(f"[loader] built; load_batch == load_frame frame by frame {same}; per "
+          f"{EVAL_FRAME[0]}x{EVAL_FRAME[1]} frame: load_batch {batch_ms:.2f} ms (8 threads), "
+          f"load_frame {frame_ms:.2f} ms, PIL decode + PIL-exact preprocess_image "
+          f"{pil_ms:.2f} ms (one thread); mean difference from the PIL-exact canvas "
+          f"{diff:.3f} levels; {smi}")
+    if not same:
+        _fail("loader: load_batch differs from load_frame")
+    return {"built": True, "batch_ms": batch_ms, "frame_ms": frame_ms, "pil_ms": pil_ms}
+
+
 def phase_ddp(smi):
     """DistributedDataParallel on the card: a one-rank NCCL process group
     (``parallel/ddp.py:init_distributed`` with a ``file://`` store in a
@@ -1742,6 +2270,11 @@ def main():
     train_launches, train_per_iter = timed("train", phase_train, smi)
     method_training = timed("method training", phase_method_training, smi)
     ddp_launches, ddp_per_iter = timed("ddp", phase_ddp, smi)
+    pos_function = timed("pos function", phase_pos_function)
+    tta_launches, tta_per_frame, _ = timed("tta", phase_tta, smi)
+    demo_launches, _ = timed("demo", phase_demo, smi)
+    gn_launches = timed("gn", phase_gn, smi)
+    timed("native loader", phase_native_loader, smi)
 
     source = {
         "stem_pool_packed": ("cuda", "mega_pytorch_tpu_torch/csrc/stem_pool.cu",
@@ -1762,26 +2295,29 @@ def main():
     # launches: each path's run counts from 0 and is read just after it: the
     # MEGA lanes run (phase 6), the methods (phase 9), the base detector
     # (phase 10), the eval path (phase 11), MEGA training (phase 13), RDN,
-    # FGFA and DFF training (phase 14), the DDP step (phase 15), and the
-    # position-bias paths (phase 7) for the kernel no model path reaches;
-    # launches_per_step is what every step (training: iteration) of each
-    # run launched
+    # FGFA and DFF training (phase 14), the DDP step (phase 15), test-time
+    # augmentation through test_net (phase 17), the demo (phase 18), the GN
+    # base detector (phase 19), and the position-bias paths (phase 7) for
+    # the kernel no model path reaches; launches_per_step is what every step
+    # (training: iteration; TTA: frame) of each run launched
     by_path = {"mega": lane_launches, **{m: c for m, (c, _) in methods.items()},
                "base": base_launches, "eval path": eval_launches,
                "eval path base (serial)": eval_base,
                "position-bias paths": path_launches, "train": train_launches,
                **{f"{m} train": c for m, (c, _) in method_training.items()},
-               "rdn train ddp": ddp_launches}
+               "rdn train ddp": ddp_launches, "tta": tta_launches, "demo": demo_launches,
+               "gn base": gn_launches}
     per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()},
                         "eval path": eval_per_step, "train": train_per_iter,
                         **{f"{m} train": p for m, (_, p) in method_training.items()},
-                        "rdn train ddp": ddp_per_iter}
+                        "rdn train ddp": ddp_per_iter, "tta": tta_per_frame}
     print(f"[result] launches per kernel: stream (1 lane) {launches}; by path {by_path}")
     print(f"[result] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     rows["stem_pool_packed"]["rdn_shape"] = rdn_stem
     pos = rows["flash_relation_attention_pos"]
     pos["rdn_shapes"] = rdn_pos
     pos["max_abs_err"] = max([pos["max_abs_err"]] + [e["max_abs_err"] for e in rdn_pos])
+    pos["function_shapes"] = pos_function
     for kname, entries in train_shapes.items():
         rows[kname]["train_shapes"] = entries
         rows[kname]["max_abs_err"] = max([rows[kname]["max_abs_err"]]

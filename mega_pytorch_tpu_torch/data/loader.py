@@ -89,6 +89,14 @@ class EvalPreprocessor(TrainPreprocessor):
         return out
 
 
+def eval_preprocessor(cfg) -> EvalPreprocessor:
+    """The config's test-time preprocessing: INPUT's test sizes on the TPU
+    section's canvas."""
+    return EvalPreprocessor(min_size=cfg.INPUT.MIN_SIZE_TEST, max_size=cfg.INPUT.MAX_SIZE_TEST,
+                            canvas_short=cfg.TPU.CANVAS_HEIGHT,
+                            canvas_long=cfg.TPU.CANVAS_WIDTH, max_gt=cfg.TPU.MAX_GT_BOXES)
+
+
 def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
     """Run ``iterator`` in a background thread with a bounded queue (keeps
     the host busy while the card runs a step). An exception in the thread is

@@ -271,17 +271,27 @@ def _partition_dff(videos: list[list[int]], lanes: int, key_interval: int):
 
 
 def pack_factor(method: str, canvas_shape) -> int:
-    """The host-side s2d factor of a canvas (H, W, ...), as the JAX engine
-    picks it: MEGA and RDN pack s2d(4) when both sides are multiples of 4
-    (the stem's 3x3 reformulation and the stem pool kernel), else s2d(2)
-    when both are even (the stem's 4x4 reformulation), else nothing; FGFA's
-    carry and DFF's flow net read plain frames (0)."""
+    """The host-side s2d factor of a canvas (H, W, ...), the one place that
+    decides it for every engine: MEGA, RDN and the base detector pack s2d(4)
+    when both sides are multiples of 4 (the stem's 3x3 reformulation and the
+    stem pool kernel), else s2d(2) when both are even (the stem's 4x4
+    reformulation), else nothing; FGFA's carry and DFF's flow net read plain
+    frames (0). For MEGA and RDN this is the JAX lockstep engine's choice;
+    the JAX package feeds the base detector plain canvases, which its 7x7
+    stem maps to the same function."""
     h, w = canvas_shape[0], canvas_shape[1]
-    if method not in ("mega", "rdn"):
+    if method not in ("mega", "rdn", "base"):
         return 0
     if h % 4 == 0 and w % 4 == 0:
         return 4
     return 2 if h % 2 == 0 and w % 2 == 0 else 0
+
+
+def pack_frames(method: str, frames: np.ndarray) -> np.ndarray:
+    """Host canvases (..., H, W, 3) as ``method``'s model takes them:
+    s2d-packed by ``pack_factor``, or as they are."""
+    factor = pack_factor(method, frames.shape[-3:])
+    return s2d_pack_frames(frames, factor) if factor else frames
 
 
 def split_videos(dataset, indices) -> list[list[int]]:

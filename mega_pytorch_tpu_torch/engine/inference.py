@@ -15,11 +15,14 @@ the way the lockstep engine schedules one lane.
 
 ``StreamingInferencer`` is the serial engine, one video at a time and one
 model method per call, as the JAX package's: it reads the f32 canvases of
-``EvalPreprocessor._prep`` (unpacked, so the canonical 7x7 stem runs) and
-owns all IO. Per video (frame_category 0) it fills the window with frame 0,
-reads ahead (all_frame_interval - key_frame_location - 1) frames, and for
-MEGA applies the video's initial global frames before the first detect;
-then one detect per frame. ``compute_on_dataset`` dispatches as the JAX
+``EvalPreprocessor`` and owns all IO. It hands them to the model packed as
+``batched_inference.pack_factor`` says (s2d(4) for MEGA, RDN and the base
+detector on canvases of multiples of 4, so their stems take the stem pool
+kernel; FGFA and DFF plain), as the lockstep engine does. Per video
+(frame_category 0) it fills the window with frame 0, reads ahead
+(all_frame_interval - key_frame_location - 1) frames, and for MEGA applies
+the video's initial global frames before the first detect; then one detect
+per frame. ``compute_on_dataset`` dispatches as the JAX
 one does: more than one lane of a streaming method goes to the lockstep
 engine, everything else (the base method included) to the serial engine.
 """
@@ -162,10 +165,12 @@ class StreamingInferencer:
         self.carry = None
 
     def _batch(self, images: np.ndarray, sizes: np.ndarray):
+        from .batched_inference import pack_frames
+
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        return dev(images), dev(sizes)
+        return dev(pack_frames(self.method, images)), dev(sizes)
 
     def _frame_batch(self, key: str, sample: dict):
         return self._batch(sample[key], sample[key + "_size"])

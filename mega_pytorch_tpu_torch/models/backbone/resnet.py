@@ -7,6 +7,13 @@ Public functions take and return NHWC; inside, convolutions run on NCHW
 views of channels_last memory. In training, the stages below
 ``FREEZE_CONV_BODY_AT`` are frozen by ``requires_grad_(False)`` (``freeze_``),
 which gives what the JAX package's stop_gradient after them gives.
+
+``norm`` is "frozen_bn" (the ``*WithFixedBatchNorm`` variants) or "gn"
+(``*WithGN``: ``GroupNorm`` with 32 groups, trainable); ``num_groups`` and
+``width_per_group`` set the grouped 3x3 convolutions and the bottleneck
+widths (ResNeXt), ``res2_out_channels`` and ``stem_out_channels`` the
+stages' and the stem's widths, as in the JAX package. ``build_resnet_c4``
+and ``build_res5_head`` read them from the config.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.kernels.stem_pool import stem_pool_packed
-from ..layers import Conv, FrozenBatchNorm2d, lecun_normal_
+from ..layers import DTYPES, Conv, FrozenBatchNorm2d, GroupNorm, lecun_normal_
 
 STAGE_SPECS = {
     "R-14": (1, 1, 1, 1),
@@ -36,10 +43,23 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def make_norm(kind: str, features: int, dtype=torch.float32, device=None) -> nn.Module:
+    """FrozenBN (the default) or GroupNorm-32 (``kind`` "gn"), the JAX
+    package's ``make_norm``."""
+    if kind == "gn":
+        return GroupNorm(features, dtype, device)
+    return FrozenBatchNorm2d(features, dtype, device)
+
+
+def norm_of(cfg) -> str:
+    """The config's norm: "gn" for the ``*WithGN`` transformation."""
+    return "gn" if cfg.MODEL.RESNETS.TRANS_FUNC.endswith("WithGN") else "frozen_bn"
+
+
 class Bottleneck(nn.Module):
     def __init__(self, in_channels, bottleneck_channels, out_channels, stride=1,
                  stride_in_1x1=True, dilation=1, dtype=torch.float32,
-                 device=None):
+                 device=None, num_groups=1, norm="frozen_bn"):
         super().__init__()
         stride = 1 if dilation > 1 else stride
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
@@ -48,16 +68,16 @@ class Bottleneck(nn.Module):
             down_stride = stride if dilation == 1 else 1
             self.downsample_conv = Conv(in_channels, out_channels, 1,
                                         stride=down_stride, **kw)
-            self.downsample_bn = FrozenBatchNorm2d(out_channels, dtype, device)
+            self.downsample_bn = make_norm(norm, out_channels, dtype, device)
         else:
             self.downsample_conv = None
         self.conv1 = Conv(in_channels, bottleneck_channels, 1, stride=s1, **kw)
-        self.bn1 = FrozenBatchNorm2d(bottleneck_channels, dtype, device)
+        self.bn1 = make_norm(norm, bottleneck_channels, dtype, device)
         self.conv2 = Conv(bottleneck_channels, bottleneck_channels, 3, stride=s3,
-                          padding=dilation, dilation=dilation, **kw)
-        self.bn2 = FrozenBatchNorm2d(bottleneck_channels, dtype, device)
+                          padding=dilation, dilation=dilation, groups=num_groups, **kw)
+        self.bn2 = make_norm(norm, bottleneck_channels, dtype, device)
         self.conv3 = Conv(bottleneck_channels, out_channels, 1, **kw)
-        self.bn3 = FrozenBatchNorm2d(out_channels, dtype, device)
+        self.bn3 = make_norm(norm, out_channels, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         identity = x
@@ -117,20 +137,24 @@ class _StemConv1(nn.Module):
 
 
 class Stem(nn.Module):
-    """7x7/2 conv + frozen BN + relu + 3x3/2 maxpool.
+    """7x7/2 conv + norm + relu + 3x3/2 maxpool.
 
-    A 48-channel s2d(4)-packed input runs the exact 3x3/1 reformulation and
-    the ``stem_pool_packed`` kernel; a 12-channel s2d(2)-packed input the
-    exact 4x4/1 reformulation, then BN, relu and the maxpool as the canonical
-    form (no kernel, as in the JAX package); a 3-channel input the canonical
-    form. The packed kernels and the BN affine are derived from the canonical
-    parameters once, at initialisation and whenever weights are loaded."""
+    A 48-channel s2d(4)-packed input runs the exact 3x3/1 reformulation and,
+    under frozen BN, the ``stem_pool_packed`` kernel; under group norm the
+    packed output is unpacked to the stem conv's map and takes the norm,
+    relu and maxpool of the canonical form (GN's statistics are not a
+    per-channel affine, so no kernel, as in the JAX package); a 12-channel
+    s2d(2)-packed input the exact 4x4/1 reformulation, then the norm, relu
+    and the maxpool as the canonical form (no kernel, as in the JAX
+    package); a 3-channel input the canonical form. The packed kernels and
+    the BN affine are derived from the canonical parameters once, at
+    initialisation and whenever weights are loaded."""
 
-    def __init__(self, out_channels=64, dtype=torch.float32, device=None):
+    def __init__(self, out_channels=64, dtype=torch.float32, device=None, norm="frozen_bn"):
         super().__init__()
-        self.out_channels, self.dtype = out_channels, dtype
+        self.out_channels, self.dtype, self.norm = out_channels, dtype, norm
         self.conv1 = _StemConv1(out_channels, device)
-        self.bn1 = FrozenBatchNorm2d(out_channels, dtype, device)
+        self.bn1 = make_norm(norm, out_channels, dtype, device)
         self.register_buffer("w3", torch.empty(0, device=device), persistent=False)
         self.register_buffer("w4", torch.empty(0, device=device), persistent=False)
         self.register_buffer("scale4", torch.empty(0, device=device), persistent=False)
@@ -148,18 +172,24 @@ class Stem(nn.Module):
             memory_format=torch.channels_last)
         self.w4 = s2d_stem_kernel(w7).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
-        scale, shift = self.bn1.affine_f32()
-        self.scale4 = scale.float().repeat(4).contiguous()
-        self.shift4 = shift.float().repeat(4).contiguous()
+        if self.norm != "gn":
+            scale, shift = self.bn1.affine_f32()
+            self.scale4 = scale.float().repeat(4).contiguous()
+            self.shift4 = shift.float().repeat(4).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NHWC in, NCHW out
         dt = self.dtype
         if x.shape[-1] == 48:
             y = F.conv2d(nchw(x.to(dt)), self.w3, padding=1)  # (N, 4O, T, U)
-            pooled = stem_pool_packed(nhwc(y), self.scale4, self.shift4,
-                                      self.out_channels)
-            return nchw(pooled)
-        if x.shape[-1] == 12:  # (left, right, top, bottom) = (2, 1, 2, 1)
+            if self.norm != "gn":
+                pooled = stem_pool_packed(nhwc(y), self.scale4, self.shift4,
+                                          self.out_channels)
+                return nchw(pooled)
+            # channel (a' * 2 + b') * O + o holds stem output (2t + a', 2u + b', o)
+            n, _, t, u = y.shape
+            y = y.reshape(n, 2, 2, self.out_channels, t, u).permute(0, 3, 4, 1, 5, 2)
+            y = y.reshape(n, self.out_channels, 2 * t, 2 * u)
+        elif x.shape[-1] == 12:  # (left, right, top, bottom) = (2, 1, 2, 1)
             y = F.conv2d(F.pad(nchw(x.to(dt)), (2, 1, 2, 1)), self.w4)
         else:
             y = F.conv2d(nchw(x.to(dt)), self.conv1.weight.to(dt), stride=2, padding=3)
@@ -172,31 +202,34 @@ class ResNetStage(nn.Sequential):
 
     def __init__(self, block_count, in_channels, bottleneck_channels,
                  out_channels, first_stride, stride_in_1x1=True, dilation=1,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, num_groups=1, norm="frozen_bn"):
         blocks = []
         for i in range(block_count):
             blocks.append(Bottleneck(
                 in_channels if i == 0 else out_channels, bottleneck_channels,
                 out_channels, first_stride if i == 0 else 1, stride_in_1x1,
-                dilation, dtype, device,
+                dilation, dtype, device, num_groups, norm,
             ))
         super().__init__(*blocks)
 
 
 class ResNetC4(nn.Module):
-    """Stem + stages 1..3: NHWC frames → NHWC C4 map (stride 16, 1024 ch)."""
+    """Stem + stages 1..3: NHWC frames → NHWC C4 map (stride 16,
+    ``4 * res2_out_channels`` channels: 1024)."""
 
     def __init__(self, depth="R-50", stride_in_1x1=True, dtype=torch.float32,
-                 device=None):
+                 device=None, norm="frozen_bn", num_groups=1, width_per_group=64,
+                 res2_out_channels=256, stem_out_channels=64):
         super().__init__()
-        self.stem = Stem(64, dtype, device)
-        in_ch = 64
+        self.stem = Stem(stem_out_channels, dtype, device, norm)
+        in_ch = stem_out_channels
         for stage_idx, count in enumerate(STAGE_SPECS[depth][:3], start=1):
             factor = 2 ** (stage_idx - 1)
-            out_ch = 256 * factor
+            out_ch = res2_out_channels * factor
             setattr(self, f"layer{stage_idx}", ResNetStage(
-                count, in_ch, 64 * factor, out_ch,
+                count, in_ch, num_groups * width_per_group * factor, out_ch,
                 1 if stage_idx == 1 else 2, stride_in_1x1, 1, dtype, device,
+                num_groups, norm,
             ))
             in_ch = out_ch
 
@@ -218,11 +251,40 @@ class ResNetRes5Head(nn.Module):
     ``stride_init=1`` and dilation 2. NHWC in and out."""
 
     def __init__(self, depth="R-50", stride_init=1, dilation=2,
-                 stride_in_1x1=True, dtype=torch.float32, device=None):
+                 stride_in_1x1=True, dtype=torch.float32, device=None,
+                 norm="frozen_bn", num_groups=1, width_per_group=64,
+                 res2_out_channels=256):
         super().__init__()
-        self.layer4 = ResNetStage(STAGE_SPECS[depth][3], 1024, 512, 2048,
+        self.out_channels = res2_out_channels * 8
+        self.layer4 = ResNetStage(STAGE_SPECS[depth][3], res2_out_channels * 4,
+                                  num_groups * width_per_group * 8, self.out_channels,
                                   stride_init, stride_in_1x1, dilation, dtype,
-                                  device)
+                                  device, num_groups, norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nhwc(self.layer4(nchw(x)))
+
+
+def depth_of(cfg) -> str:
+    """The config's depth: "R-50-C4" → "R-50"."""
+    return "-".join(cfg.MODEL.BACKBONE.CONV_BODY.split("-")[:2])
+
+
+def build_resnet_c4(cfg, device=None) -> ResNetC4:
+    """The config's C4 body (the JAX ``build_resnet_c4``): depth, norm,
+    groups and widths from ``MODEL.RESNETS``, the compute dtype from
+    ``TPU.COMPUTE_DTYPE``; weights not drawn (``init_weights`` of each
+    module, as ``RCNNBase.init_weights`` does), frozen below
+    ``FREEZE_CONV_BODY_AT`` only when the caller trains (``freeze_``)."""
+    r = cfg.MODEL.RESNETS
+    return ResNetC4(depth_of(cfg), r.STRIDE_IN_1X1, DTYPES[cfg.TPU.COMPUTE_DTYPE], device,
+                    norm_of(cfg), r.NUM_GROUPS, r.WIDTH_PER_GROUP, r.RES2_OUT_CHANNELS,
+                    r.STEM_OUT_CHANNELS)
+
+
+def build_res5_head(cfg, stride_init: int = 1, device=None) -> ResNetRes5Head:
+    """The config's res5 head (the JAX ``build_res5_head``)."""
+    r = cfg.MODEL.RESNETS
+    return ResNetRes5Head(depth_of(cfg), stride_init, r.RES5_DILATION, r.STRIDE_IN_1X1,
+                          DTYPES[cfg.TPU.COMPUTE_DTYPE], device, norm_of(cfg),
+                          r.NUM_GROUPS, r.WIDTH_PER_GROUP, r.RES2_OUT_CHANNELS)

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..backbone.resnet import ResNetC4
+from ..backbone.resnet import ResNetC4, depth_of, norm_of
+from ..layers import DTYPES, GroupNorm
 from ..roi_heads.extractors import ResNetConv52MLPFeatureExtractor
 from ..roi_heads.inference import Detections, postprocess_detections
 from ..roi_heads.predictors import FPNPredictor
@@ -41,6 +42,7 @@ class RCNNConfig:
     compute_dtype: str = "float32"
     freeze_at: int = 2
     stride_in_1x1: bool = True
+    norm: str = "frozen_bn"  # "gn" for the *WithGN TRANS_FUNC/STEM_FUNC variants
     # anchors / RPN
     anchor_sizes: tuple = (64, 128, 256, 512)
     aspect_ratios: tuple = (0.5, 1.0, 2.0)
@@ -80,15 +82,17 @@ class RCNNConfig:
 
     @classmethod
     def from_cfg(cls, cfg) -> "RCNNConfig":
-        """The config tree's values (``config.defaults`` keys)."""
-        if cfg.MODEL.RESNETS.TRANS_FUNC.endswith("WithGN"):
-            raise NotImplementedError("group-norm ResNets are not ported")
+        """The config tree's values (``config.defaults`` keys). As in the
+        JAX package, the detector takes the norm from ``TRANS_FUNC`` and
+        none of ``NUM_GROUPS``, ``WIDTH_PER_GROUP`` or the widths, which
+        only ``build_resnet_c4`` / ``build_res5_head`` read."""
         return cls(
-            depth="-".join(cfg.MODEL.BACKBONE.CONV_BODY.split("-")[:2]),
+            depth=depth_of(cfg),
             num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
             compute_dtype=cfg.TPU.COMPUTE_DTYPE,
             freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
             stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
+            norm=norm_of(cfg),
             anchor_sizes=tuple(cfg.MODEL.RPN.ANCHOR_SIZES),
             aspect_ratios=tuple(cfg.MODEL.RPN.ASPECT_RATIOS),
             anchor_stride=cfg.MODEL.RPN.ANCHOR_STRIDE[0],
@@ -132,10 +136,8 @@ class RCNNConfig:
         return dict(depth=self.depth, reduce_channel=self.reduce_channel,
                     resolution=self.pooler_resolution, spatial_scale=self.pooler_scale,
                     sampling_ratio=self.pooler_sampling_ratio, mlp_dim=self.mlp_dim,
-                    dilation=self.res5_dilation, stride_in_1x1=self.stride_in_1x1)
-
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+                    dilation=self.res5_dilation, stride_in_1x1=self.stride_in_1x1,
+                    norm=self.norm)
 
 
 class RCNNBase(nn.Module):
@@ -147,7 +149,7 @@ class RCNNBase(nn.Module):
         self.c = c
         dtype = DTYPES[c.compute_dtype]
         self.dtype = dtype
-        self.backbone = ResNetC4(c.depth, c.stride_in_1x1, dtype, device)
+        self.backbone = ResNetC4(c.depth, c.stride_in_1x1, dtype, device, c.norm)
         self.rpn = RPNHead(1024, c.num_anchors_per_cell, dtype, device)
         self.extractor = make_extractor(dtype)
         self.predictor = FPNPredictor(c.mlp_dim, c.num_classes,
@@ -158,7 +160,8 @@ class RCNNBase(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Seeded initialisation with the flax initialisers' distributions;
-        frozen BN keeps its identity statistics."""
+        frozen BN keeps its identity statistics, group norm its unit scale
+        and zero bias."""
         for m in self.modules():
             if hasattr(m, "init_weights") and m is not self:
                 m.init_weights(generator)
@@ -256,12 +259,25 @@ def seeded_training(model: RCNNBase, device, generator) -> RCNNBase:
     """``model`` for training: weights drawn on ``device`` from ``generator``
     (seed 0 if None) and kept in f32 (the layers cast them to the compute
     dtype per call, as flax does), the backbone frozen below
-    ``c.freeze_at``, in train mode. FrozenBN statistics are buffers."""
+    ``c.freeze_at``, in train mode. FrozenBN statistics are buffers; group
+    norms keep the JAX package's rule (``freeze_norm_biases_``)."""
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
     model.init_weights(generator)
     model.backbone.freeze_(model.c.freeze_at)
+    freeze_norm_biases_(model)
     return model.train()
+
+
+def freeze_norm_biases_(model: nn.Module) -> None:
+    """The JAX ``solver/build.py`` freezes every ``weight``, ``bias`` and
+    running statistic of a module named ``bn*`` or ``*_bn``. Under group
+    norm that catches the bias (flax's ``scale`` is not in its list and
+    trains), so every ``GroupNorm`` so named keeps its bias fixed."""
+    for name, module in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(module, GroupNorm) and (leaf.startswith("bn") or leaf.endswith("_bn")):
+            module.bias.requires_grad_(False)
 
 
 class GeneralizedRCNN(RCNNBase):

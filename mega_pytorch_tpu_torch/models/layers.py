@@ -9,6 +9,8 @@ Convolutions take and return NCHW tensors; the port keeps them in
 ``channels_last`` memory, so the NHWC views the public functions hand out
 are free.
 
+Norms: ``FrozenBatchNorm2d`` (buffers) and ``GroupNorm`` (trainable).
+
 Initialisation follows the flax initialisers: ``init_std=None`` is
 lecun-normal (variance 1/fan_in, truncated at two standard deviations),
 ``init_std=0.0`` zeros, otherwise normal(init_std); biases start at zero.
@@ -21,6 +23,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # TPU.COMPUTE_DTYPE
+GN_GROUPS, GN_EPS = 32, 1e-5  # MODEL.GROUP_NORM's defaults, as the JAX make_norm fixes them
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
@@ -54,21 +59,25 @@ class _Weighted(nn.Module):
 
 
 class Conv(_Weighted):
+    """flax ``nn.Conv``; ``groups`` is its ``feature_group_count`` (weight
+    (out, in / groups, k, k))."""
+
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0, dilation=1,
-                 bias=True, dtype=torch.float32, init_std=None, device=None):
+                 bias=True, dtype=torch.float32, init_std=None, device=None, groups=1):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.empty(out_ch, in_ch, kernel, kernel, device=device))
+            torch.empty(out_ch, in_ch // groups, kernel, kernel, device=device))
         self.bias = (nn.Parameter(torch.zeros(out_ch, device=device))
                      if bias else None)
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups = groups
         self.dtype, self.init_std = dtype, init_std
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding, self.dilation)
+                        self.padding, self.dilation, self.groups)
 
 
 class ConvTranspose(_Weighted):
@@ -139,3 +148,22 @@ class FrozenBatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale.view(-1, 1, 1) + self.shift.view(-1, 1, 1)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=32, epsilon=1e-5)``: per sample, the
+    channels in 32 groups, each normalised over its channels and
+    every position, then a trainable per-channel ``weight`` (flax's
+    ``scale``) and ``bias``. Statistics and the affine in f32, the result in
+    the compute dtype. Applies to NCHW tensors (any number of trailing
+    axes)."""
+
+    def __init__(self, features: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), GN_GROUPS, self.weight.float(), self.bias.float(),
+                            GN_EPS).to(self.dtype)

@@ -11,10 +11,9 @@ per lane under vmap). On a CUDA tensor every call launches the flash kernel:
 mode "compute" when ``pos_rois`` is given, mode "input" with the log bias of
 a ``pos_emb`` (log(relu(pos_emb . Wg + b) + 1e-6), a plain product) or
 under ``precise_bias``, mode "none" otherwise, whatever the number of refs;
-where an operand needs a gradient, modes "none" and "input" launch through
-their autograd Function. On a CPU tensor the einsum path runs with the
-bf16-sinusoid position bias (f32 under ``precise_bias``), as the JAX module
-does there.
+where an operand needs a gradient, each mode launches through its autograd
+Function. On a CPU tensor the einsum path runs with the bf16-sinusoid
+position bias (f32 under ``precise_bias``), as the JAX module does there.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from ...ops.kernels.position_bias import (
 )
 from ...ops.kernels.relation_attention import (
     RelationAttentionFunction,
+    RelationAttentionPosFunction,
     flash_relation_attention,
     flash_relation_attention_bias,
     flash_relation_attention_pos,
@@ -97,9 +97,11 @@ class RelationAttention(nn.Module):
         ref_rois (L, M, 4)) or pos_emb (L, N, M, E) → (L, N, D) f32.
 
         precise_bias (training): the log bias of ``pos_rois`` in plain torch
-        with f32 sinusoids, differentiable into Wg, and on CUDA mode "input"
-        (never "compute"). The bf16 sinusoids of inference corrupt the
-        bias's gradient at the relu boundary while leaving its values."""
+        with f32 sinusoids, differentiable into Wg, and on CUDA mode "input".
+        Without it, ``pos_rois`` take mode "compute", whose gradient (the
+        JAX package's ``custom_vjp``) recomputes the bias with the bf16
+        sinusoids of inference: they corrupt the bias's gradient at the relu
+        boundary while leaving its values."""
         g = self.groups
         d = self.feat_dim // g
         dt = self.dtype
@@ -132,25 +134,24 @@ class RelationAttention(nn.Module):
 
             args = (bf16(q), bf16(k), bf16(v), uk.contiguous())
             valid = ref_valid.contiguous()
-            operands = args if log_bias is None else (*args, log_bias)
-            if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-                # the kernels' forward, the plain version's backward
-                if log_bias is None and self.use_position:
-                    raise NotImplementedError(
-                        'mode "compute" has no gradient: pass precise_bias=True')
+            pos = ()
+            if self.use_position and log_bias is None:  # mode "compute"
+                pos = (pos_rois[0].float().contiguous(), pos_rois[1].float().contiguous(),
+                       self.Wg.kernel.float().contiguous(), self.Wg.bias.float().contiguous())
+            extra = pos if log_bias is None else (log_bias.contiguous(),)
+            # the kernels' forward, the plain version's backward
+            grad = torch.is_grad_enabled() and any(t.requires_grad for t in (*args, *extra))
+            if pos and grad:
+                out = RelationAttentionPosFunction.apply(*args, *pos, valid,
+                                                         flash_relation_attention_pos)
+            elif pos:
+                out = flash_relation_attention_pos(*args, *pos, valid)
+            elif grad:
                 out = RelationAttentionFunction.apply(
-                    *args, None if log_bias is None else log_bias.contiguous(), valid,
-                    flash_relation_attention if log_bias is None
-                    else flash_relation_attention_bias)
-            elif log_bias is not None:
-                out = flash_relation_attention_bias(*args, log_bias.contiguous(), valid)
-            elif self.use_position:
-                out = flash_relation_attention_pos(
-                    *args, pos_rois[0].float().contiguous(),
-                    pos_rois[1].float().contiguous(),
-                    self.Wg.kernel.float().contiguous(),
-                    self.Wg.bias.float().contiguous(), valid,
-                )
+                    *args, extra[0] if extra else None, valid,
+                    flash_relation_attention_bias if extra else flash_relation_attention)
+            elif extra:
+                out = flash_relation_attention_bias(*args, *extra, valid)
             else:
                 out = flash_relation_attention(*args, valid)
             return out.transpose(1, 2).reshape(lanes, -1, self.feat_dim) + self.Wv_bias.float()

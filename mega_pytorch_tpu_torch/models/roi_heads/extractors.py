@@ -15,9 +15,10 @@ from .mega_extractor import Res5Pooler
 class ResNetConv52MLPFeatureExtractor(Res5Pooler):
     def __init__(self, depth="R-50", reduce_channel=True, resolution=7,
                  spatial_scale=1.0 / 16, sampling_ratio=0, mlp_dim=1024,
-                 dilation=2, stride_in_1x1=True, dtype=torch.float32, device=None):
+                 dilation=2, stride_in_1x1=True, dtype=torch.float32, device=None,
+                 norm="frozen_bn"):
         super().__init__(depth, reduce_channel, resolution, spatial_scale,
-                         sampling_ratio, dilation, stride_in_1x1, dtype, device)
+                         sampling_ratio, dilation, stride_in_1x1, dtype, device, norm)
         self.fc6 = Dense(self.flat_dim, mlp_dim, dtype, device=device)
         self.fc7 = Dense(mlp_dim, mlp_dim, dtype, device=device)
 

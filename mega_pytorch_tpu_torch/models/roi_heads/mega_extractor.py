@@ -44,12 +44,12 @@ class Res5Pooler(nn.Module):
     output flattened in (h, w, c) order (``flat_dim`` columns)."""
 
     def __init__(self, depth, reduce_channel, resolution, spatial_scale,
-                 sampling_ratio, dilation, stride_in_1x1, dtype, device):
+                 sampling_ratio, dilation, stride_in_1x1, dtype, device, norm="frozen_bn"):
         super().__init__()
         self.reduce_channel, self.resolution = reduce_channel, resolution
         self.spatial_scale, self.sampling_ratio = spatial_scale, sampling_ratio
         self.dtype = dtype
-        self.head = ResNetRes5Head(depth, 1, dilation, stride_in_1x1, dtype, device)
+        self.head = ResNetRes5Head(depth, 1, dilation, stride_in_1x1, dtype, device, norm)
         in_ch = 2048
         if reduce_channel:
             self.conv = Conv(2048, 256, 1, dtype=dtype, device=device)
@@ -76,9 +76,9 @@ class MEGAFeatureExtractor(Res5Pooler):
                  spatial_scale=1.0 / 16, sampling_ratio=0, mlp_dim=1024,
                  dilation=2, stride_in_1x1=True, stage=3, base_num=75,
                  advanced_num=15, embed_dim=64, groups=16, global_enable=True,
-                 global_res_stage=1, dtype=torch.float32, device=None):
+                 global_res_stage=1, dtype=torch.float32, device=None, norm="frozen_bn"):
         super().__init__(depth, reduce_channel, resolution, spatial_scale,
-                         sampling_ratio, dilation, stride_in_1x1, dtype, device)
+                         sampling_ratio, dilation, stride_in_1x1, dtype, device, norm)
         self.stage, self.base_num, self.advanced_num = stage, base_num, advanced_num
         self.global_enable, self.global_res_stage = global_enable, global_res_stage
         for i in range(stage):

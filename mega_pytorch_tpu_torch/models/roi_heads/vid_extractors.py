@@ -30,9 +30,9 @@ class RDNFeatureExtractor(Res5Pooler):
                  spatial_scale=1.0 / 16, sampling_ratio=0, mlp_dim=1024,
                  dilation=2, stride_in_1x1=True, base_stage=2, advanced_stage=0,
                  base_num=75, advanced_num=15, embed_dim=64, groups=16,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, norm="frozen_bn"):
         super().__init__(depth, reduce_channel, resolution, spatial_scale,
-                         sampling_ratio, dilation, stride_in_1x1, dtype, device)
+                         sampling_ratio, dilation, stride_in_1x1, dtype, device, norm)
         self.base_stage, self.advanced_stage = base_stage, advanced_stage
         self.base_num, self.advanced_num = base_num, advanced_num
         if advanced_stage == 0:

@@ -24,7 +24,9 @@ The kernel takes g = 16, d = 64 and E = 64 (the MEGA configuration).
 The wrappers are forward-only and raise on an operand that requires grad;
 ``RelationAttentionFunction`` gives modes "none" and "input" a gradient,
 recomputed through ``reference_relation_attention`` (the JAX package's
-``_vjp_bwd``). Mode "compute" has none yet.
+``_vjp_bwd``), and ``RelationAttentionPosFunction`` gives mode "compute"
+one, recomputed through ``reference_relation_attention_pos`` with bf16
+sinusoids (the JAX package's ``_pos_vjp_bwd``).
 """
 
 from __future__ import annotations
@@ -360,3 +362,36 @@ class RelationAttentionFunction(torch.autograd.Function):
         q, k, v, uk, bias, valid = ctx.saved_tensors
         grads = _recompute_grads(grad_out, q, k, v, uk, bias, valid)
         return (*grads[:4], grads[4] if bias is not None else None, None, None)
+
+
+def _recompute_pos_grads(grad_out, q, k, v, uk, rois, ref_rois, wg_kernel, wg_bias, valid):
+    """Gradients of q, k, v, uk, rois, ref_rois, Wg's kernel and bias from
+    autograd through the plain mode "compute": the log bias of
+    ``reference_position_bias`` with its bf16 sinusoids, added to the
+    logits, as the JAX package's ``_pos_vjp_bwd`` recomputes it."""
+    with torch.enable_grad():
+        diff = [t.detach().requires_grad_()
+                for t in (q, k, v, uk, rois, ref_rois, wg_kernel, wg_bias)]
+        out = reference_relation_attention_pos(*diff, valid, sin_dtype=torch.bfloat16)
+        return torch.autograd.grad(out, diff, grad_out)
+
+
+class RelationAttentionPosFunction(torch.autograd.Function):
+    """Mode "compute" with a gradient: ``apply(q, k, v, uk, rois, ref_rois,
+    wg_kernel, wg_bias, valid, launch)``, ``launch`` the forward
+    (``flash_relation_attention_pos``; a CPU test passes the tiled plain
+    version). The backward materialises the (B, g, N, M) bias and logits:
+    the bf16 sinusoids of the JAX package's ``custom_vjp`` make dWg noisy
+    where pw sits at its relu floor, so training takes mode "input" with
+    the f32-sinusoid bias instead (``RelationAttention(precise_bias=True)``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, uk, rois, ref_rois, wg_kernel, wg_bias, valid, launch):
+        ops = (q, k, v, uk, rois, ref_rois, wg_kernel, wg_bias)
+        ctx.save_for_backward(*ops, valid)
+        return launch(*(t.detach() for t in ops), valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        *ops, valid = ctx.saved_tensors
+        return (*_recompute_pos_grads(grad_out, *ops, valid), None, None)

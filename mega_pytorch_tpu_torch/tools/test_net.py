@@ -8,7 +8,10 @@ Builds the detector from the config, loads ``MODEL.WEIGHT`` (or
 weights are drawn from ``--seed``), reads the VID index and annotations,
 preprocesses frames as the JAX package does, and streams whole videos of
 this shard through the lockstep engine (``--lanes`` > 1) or the serial
-engine (the base method, or one lane). Writes ``predictions_{shard}.npz``
+engine (the base method, or one lane); with ``TEST.BBOX_AUG.ENABLED`` (the
+base method only) each frame runs test-time augmentation instead
+(``engine/bbox_aug.py``: the base size and ``TEST.BBOX_AUG.SCALES``, flips
+by ``H_FLIP`` / ``SCALE_H_FLIP``). Writes ``predictions_{shard}.npz``
 and, with one shard, ``result.txt`` and ``result.json``, logging AP50 per
 motion bucket. The run takes the CUDA card unless ``--device cpu`` is given,
 and fails where there is none.
@@ -84,7 +87,7 @@ def video_starts(dataset) -> list[int]:
 
 def main(argv=None) -> dict:
     """Runs the evaluation; returns {"predictions": ..., "result": ... or None}."""
-    from ..data.loader import EvalPreprocessor
+    from ..data.loader import eval_preprocessor
     from ..data.paths_catalog import build_dataset
     from ..data.samplers import video_shards
     from ..engine.inference import compute_on_dataset, evaluate_predictions
@@ -97,10 +100,10 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("test_net: no CUDA card here; --device cpu runs on the CPU")
     cfg = load_config(args)
-    if cfg.TEST.BBOX_AUG.ENABLED:
-        raise NotImplementedError("TEST.BBOX_AUG (test-time augmentation) is not ported")
-    logger = setup_logger("mega_pytorch_tpu_torch.eval", args.output_dir)
     method = cfg.MODEL.VID.METHOD if cfg.MODEL.VID.ENABLE else "base"
+    if cfg.TEST.BBOX_AUG.ENABLED and method != "base":
+        raise ValueError(f"TEST.BBOX_AUG is single-frame only (the base method), not {method!r}")
+    logger = setup_logger("mega_pytorch_tpu_torch.eval", args.output_dir)
     logger.info(f"{args.preset} ({method}) on {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
 
@@ -115,14 +118,15 @@ def main(argv=None) -> dict:
 
     dataset = build_dataset(cfg.DATASETS.TEST[0], method=method, is_train=False,
                             data_dir=args.data_dir, **dataset_kwargs(cfg, method, args.seed))
-    prep = EvalPreprocessor(min_size=cfg.INPUT.MIN_SIZE_TEST, max_size=cfg.INPUT.MAX_SIZE_TEST,
-                            canvas_short=cfg.TPU.CANVAS_HEIGHT,
-                            canvas_long=cfg.TPU.CANVAS_WIDTH, max_gt=cfg.TPU.MAX_GT_BOXES)
+    prep = eval_preprocessor(cfg)
     indices = video_shards(video_starts(dataset), len(dataset), args.num_shards)[args.shard]
     logger.info(f"shard {args.shard}/{args.num_shards}: {len(indices)} frames")
 
-    preds = compute_on_dataset(model, dataset, indices, prep, method, logger,
-                               lanes=args.lanes)
+    if cfg.TEST.BBOX_AUG.ENABLED:
+        preds = bbox_aug_on_dataset(model, dataset, indices, cfg, logger)
+    else:
+        preds = compute_on_dataset(model, dataset, indices, prep, method, logger,
+                                   lanes=args.lanes)
     os.makedirs(args.output_dir, exist_ok=True)
     save_predictions(preds, os.path.join(args.output_dir, f"predictions_{args.shard}.npz"))
     result = None
@@ -131,6 +135,26 @@ def main(argv=None) -> dict:
                                       box_only=args.box_only)
         write_result(result, args.output_dir, box_only=args.box_only)
     return {"predictions": preds, "result": result}
+
+
+def bbox_aug_on_dataset(model, dataset, indices, cfg, logger=None) -> dict:
+    """Test-time augmentation of each frame of ``indices`` (the JAX
+    ``tools/test_net.py`` loop) → {dataset_idx: prediction dict}."""
+    from ..engine.bbox_aug import im_detect_bbox_aug
+
+    aug = cfg.TEST.BBOX_AUG
+    preds = {}
+    for n, i in enumerate(indices):
+        preds[i] = im_detect_bbox_aug(
+            model, dataset.load_image(i),
+            scales=(cfg.INPUT.MIN_SIZE_TEST,) + tuple(aug.SCALES), max_size=aug.MAX_SIZE,
+            canvas_short=cfg.TPU.CANVAS_HEIGHT, canvas_long=cfg.TPU.CANVAS_WIDTH,
+            hflip=aug.H_FLIP, scale_hflip=aug.SCALE_H_FLIP,
+            nms_thresh=cfg.MODEL.ROI_HEADS.NMS,
+            detections_per_img=cfg.TEST.DETECTIONS_PER_IMG)
+        if logger and n % 100 == 0:
+            logger.info(f"bbox-aug {n}/{len(indices)}")
+    return preds
 
 
 def save_predictions(preds: dict, path: str) -> None:

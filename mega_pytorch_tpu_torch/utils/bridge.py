@@ -4,8 +4,11 @@ Module names in the port equal the flax scopes, so the bridge is a walk over
 the tree that renames leaves and inverts layouts:
 
 - conv ``kernel`` HWIO → ``weight`` OIHW (the stem's canonical (7, 7, 3, 64)
-  kernel included); ``nn.Dense`` ``kernel`` (in, out) → ``weight`` (out, in);
-  ``bias`` as it is;
+  kernel included; a grouped conv's (kh, kw, I / groups, O) kernel becomes
+  ``conv2d``'s (O, I / groups, kh, kw) by the same transpose);
+  ``nn.Dense`` ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as it
+  is;
+- ``nn.GroupNorm`` ``scale`` → ``weight``, ``bias`` as it is;
 - ``nn.ConvTranspose(transpose_kernel=True)`` ``kernel`` (kh, kw, out, in)
   (FlowNetS's upsamplers) → ``conv_transpose2d``'s (in, out, kh, kw)
   ``weight`` by the same 4-D transpose, with no spatial flip: flax's
@@ -43,6 +46,8 @@ def bridge_entries(params) -> Iterator[tuple[str, object, tuple | None]]:
     for path, val in _flatten(params):
         *mods, leaf = path
         axes = None
+        if leaf == "scale":  # nn.GroupNorm, the only flax module with one here
+            leaf = "weight"
         if leaf == "kernel" and (not mods or mods[-1] not in _KEEP_KERNEL):
             leaf = "weight"
             ndim = len(np.shape(val))

@@ -25,7 +25,13 @@ from mega_pytorch_tpu_torch.utils.model_ingest import (
     load_reference_weights,
 )
 from test_ingest import _res5_sd, _torch_like_resnet_sd
-from torch_port_harness import port_configs, port_mega_from, port_model_from, tiny_mega
+from torch_port_harness import (  # noqa: F401 (remove_tmp_outputs: autouse fixture)
+    port_configs,
+    port_mega_from,
+    port_model_from,
+    remove_tmp_outputs,
+    tiny_mega,
+)
 
 _ROOTS = {"backbone": "backbone.body", "rpn": "rpn.head",
           "extractor": "roi_heads.box.feature_extractor",

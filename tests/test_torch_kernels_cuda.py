@@ -503,7 +503,8 @@ def test_train_functions_at_train_shapes(cuda, mode, n, m):
 def test_relation_attention_under_grad_takes_the_functions(cuda):
     """RelationAttention on the card under grad: precise_bias launches mode
     "input" and gives Wg a gradient, the global stage launches "none";
-    mode "compute" has no gradient, so the in-kernel bias raises."""
+    without precise_bias the in-kernel bias launches mode "compute" through
+    its Function, which gives Wg a gradient too."""
     from mega_pytorch_tpu_torch.models.roi_heads.attention import RelationAttention
 
     gen = torch.Generator(cuda).manual_seed(3)
@@ -526,5 +527,74 @@ def test_relation_attention_under_grad_takes_the_functions(cuda):
         assert all(g is not None and torch.isfinite(g).all() for g in grads)
         if use_position:
             assert float(att.Wg.kernel.grad.abs().max()) > 0.0
-            with pytest.raises(NotImplementedError, match="compute"):
-                att(roi, ref, valid, pos_rois=pos)
+            att.zero_grad()
+            before = ra.flash_relation_attention_pos.launches
+            att(roi, ref, valid, pos_rois=pos).square().sum().backward()
+            assert ra.flash_relation_attention_pos.launches == before + 1
+            assert float(att.Wg.kernel.grad.abs().max()) > 0.0
+            assert all(torch.isfinite(p.grad).all() for p in att.parameters())
+
+
+# the "compute" Function's gradients against autograd through the plain
+# version with bf16 sinusoids: the backward recomputes that version on the
+# same operands, so they agree to the last bit unless the library picks
+# another algorithm for a product; 1e-6 of each leaf's largest magnitude
+RTOL_POS_GRAD = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,u_bias", [(37, 300, True), (675, 750, True), (300, 555, False)])
+def test_pos_function_forward_and_gradients(cuda, n, m, u_bias):
+    """RelationAttentionPosFunction: one launch, its forward the kernel's
+    bit for bit, nothing launched in backward, and its eight gradients
+    (q, k, v, uk, rois, refs, Wg's kernel and bias), each in its operand's
+    dtype, against autograd through the bf16-sinusoid plain version. Wg's
+    bias is raised by 2 (``_pos``): at the relu floor the function is
+    ill-conditioned in the sinusoids' last bits."""
+    q, k, v, uk, rois, refs, wk, wb, valid = _attention(cuda, 70 + n, b=2, n=n, m=m)
+    if not u_bias:
+        uk = torch.zeros_like(uk)
+    ops = [q, k, v, uk, *_pos(rois, refs, wk, wb)]
+    want_out = ra.flash_relation_attention_pos(*ops, valid)
+    ops = [t.clone().requires_grad_() for t in ops]
+    before = ra.flash_relation_attention_pos.launches
+    out = ra.RelationAttentionPosFunction.apply(*ops, valid, ra.flash_relation_attention_pos)
+    assert ra.flash_relation_attention_pos.launches == before + 1
+    assert torch.equal(out, want_out)
+    cot = torch.randn(out.shape, generator=torch.Generator(cuda).manual_seed(n), device=cuda)
+    got = torch.autograd.grad(out, ops, cot)
+    assert ra.flash_relation_attention_pos.launches == before + 1
+    plain = ra.reference_relation_attention_pos(*ops, valid, sin_dtype=torch.bfloat16)
+    want = torch.autograd.grad(plain, ops, cot)
+    for name, op, g, w in zip(("q", "k", "v", "uk", "rois", "refs", "wk", "wb"), ops, got,
+                              want):
+        assert g.dtype == op.dtype and torch.isfinite(g).all(), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= RTOL_POS_GRAD * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gn_stem_launches_no_stem_pool(cuda, dtype):
+    """A group-norm stem on s2d(4)-packed frames takes the elementwise route
+    (GN is no per-channel affine): no stem pool launch, and equal to its
+    canonical branch (f32, TF32 off: the same sums in another order)."""
+    from mega_pytorch_tpu_torch.models.backbone.resnet import Stem
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(cuda).manual_seed(4)
+    stem = Stem(64, getattr(torch, dtype), cuda, norm="gn")
+    stem.init_weights(gen)
+    stem.eval().requires_grad_(False)
+    rs = np.random.RandomState(23)
+    x3 = torch.from_numpy((rs.randn(2, 64, 96, 3) * 50).astype(np.float32))
+    x48 = x3.reshape(2, 16, 4, 24, 4, 3).permute(0, 1, 3, 2, 4, 5).reshape(2, 16, 24, 48)
+    before = sp.stem_pool_packed.launches
+    with torch.inference_mode():
+        got = stem(x48.to(cuda))
+        want = stem(x3.to(cuda))
+    assert sp.stem_pool_packed.launches == before
+    assert got.shape == want.shape == (2, 64, 16, 24)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.isfinite(got.float()).all()

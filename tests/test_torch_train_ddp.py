@@ -47,7 +47,12 @@ from test_torch_train_loop import TRAIN_OPTS, _train_tree
 from test_torch_train_methods import _take_all
 from test_torch_train_models import GT_BOXES, GT_LABELS, _flat_grads, _frames, _sizes
 from torch_ddp_worker import one_step, solver_cfg, spawn_world
-from torch_port_harness import off_relu_corner, port_configs, to_np
+from torch_port_harness import (  # noqa: F401 (remove_tmp_outputs: autouse fixture)
+    off_relu_corner,
+    port_configs,
+    remove_tmp_outputs,
+    to_np,
+)
 
 torch.set_num_threads(2)
 

@@ -36,7 +36,7 @@ from mega_pytorch_tpu_torch.utils.checkpoint import Checkpointer
 from mega_pytorch_tpu_torch.utils.logger import setup_logger
 from test_torch_config import TINY_OPTS
 from test_torch_data import _assert_same
-from torch_port_harness import dataset_args
+from torch_port_harness import dataset_args, remove_tmp_outputs  # noqa: F401 (autouse fixture)
 
 torch.set_num_threads(4)
 

@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import shutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mega_pytorch_tpu.models.detectors.mega import GeneralizedRCNNMEGA
 from mega_pytorch_tpu.structures.image_list import ImageBatch
@@ -25,6 +27,18 @@ from mega_pytorch_tpu_torch.utils.bridge import state_dict_from_flax
 from test_mega import TINY_C, TINY_V
 
 CANVAS = (64, 96)  # tiny canvas; s2d(4)-packed frames are (16, 24, 48)
+
+
+@pytest.fixture(autouse=True)
+def remove_tmp_outputs(request):
+    """Autouse in the modules that import it: the test's ``tmp_path`` is
+    removed once the test has run. Their checkpoints and training trees take
+    up to ~1.8 GB a test, and pytest keeps the temporary directories of the
+    last three runs, which would fill a small disk."""
+    yield
+    tmp = request.node.funcargs.get("tmp_path")
+    if tmp is not None:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def port_configs(c=TINY_C, v=TINY_V):
