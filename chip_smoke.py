@@ -130,7 +130,24 @@ Phases, each printing its own lines:
   20. native loader, information only: whether ``data/native_loader.py``
      builds here (g++, libjpeg) and why not; if it does, ``load_batch``
      equal to ``load_frame`` frame by frame and both timed beside the PIL
-     path.
+     path;
+  21. zoo: at published widths in bf16 with random weights, R-50-FPN
+     (``ResNetFPNBody`` and ``FPN`` with the max-pool top block, P2-P6, on 2
+     s2d(4)-packed 800x1344 canvases of 720x1280 frames resized by
+     MIN_SIZE_TEST 800 / MAX_SIZE_TEST 1333: exactly 1 stem pool launch),
+     RetinaNet R-50-FPN (80 classes, 9 anchors, 4 convs; P3-P7 with "p6p7"
+     from C5; ``retinanet_inference`` per image, 1000 / 0.05 / 0.4 / 100),
+     ``CombinedROIHeads`` on P2 (``mask_probs`` of 100 detections,
+     ``mask_losses`` of 128 ROIs over 16 dense GT masks, ``keypoint_logits``
+     of 100 ROIs an image), FBNet's default arch with its rpn, bbox and mask
+     groups on one frame, each timed; ROIPool, DFConv2d v1 / v2 and the
+     deformable ROI pooling modules at full width with their peak memory;
+     finite outputs and boxes inside the image; each piece at 128x192 in
+     f32 (TF32 off) on the card against the same module on the CPU within
+     1e-4 of the largest magnitude, RetinaNet's keep sets equal; the folded
+     stem pool (``frame_rows``) on 24 frames bit for bit the unfolded
+     kernel and its plain version, the folded stem timed against the
+     unfolded one.
 Each phase prints its seconds. The last two lines are the kernel table and
 the device record as JSON. Any failed check raises, and the script exits
 non-zero.
@@ -258,6 +275,13 @@ DEMO_FRAMES = 12
 # 3.7e-2 of the mean magnitude (mean error) from the f32 one, so the bounds
 # are about twice those
 RTOL_GN_F32, RTOL_GN_MAX, RTOL_GN_MEAN = 1e-4, 1e-1, 6e-2
+# the detector zoo (phase 21): maskrcnn-benchmark's e2e_*_R_50_FPN_1x test
+# sizes, MIN_SIZE_TEST 800 / MAX_SIZE_TEST 1333 on an 800x1344 canvas (size
+# divisibility 32): ZOO_FRAMES drawn 720x1280 frames resized to 750x1333;
+# each piece also at ZOO_SMALL in f32 on the card against the CPU, within
+# RTOL_ZOO of the largest magnitude (f32 sums in another order, TF32 off)
+ZOO_FRAMES, ZOO_FRAME, ZOO_SIZES, ZOO_CANVAS = 2, (720, 1280), (800, 1333), (800, 1344)
+ZOO_SMALL, RTOL_ZOO = (128, 192), 1e-4
 
 
 def _fail(msg: str):
@@ -2183,6 +2207,452 @@ def phase_native_loader(smi):
     return {"built": True, "batch_ms": batch_ms, "frame_ms": frame_ms, "pil_ms": pil_ms}
 
 
+def _sync_ms(fn, repeats=5):
+    """(median ms, last result) of ``fn`` over ``repeats`` calls after one
+    warm-up, each call synchronised on the host clock."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), out
+
+
+def _peak(fn):
+    """(median ms, peak MB, scratch MB above what was allocated before, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms, out = _sync_ms(fn, 3)
+    peak = torch.cuda.max_memory_allocated()
+    return ms, peak / 2**20, (peak - base) / 2**20, out
+
+
+def _zoo_frames(dev):
+    """ZOO_FRAMES drawn 720x1280 frames through the port's preprocessing at
+    MIN_SIZE_TEST 800 / MAX_SIZE_TEST 1333 onto the 800x1344 canvas:
+    (s2d(4)-packed normalised frames, RGB normalised canvases, sizes)."""
+    import torch
+    from mega_pytorch_tpu_torch.data.transforms import (
+        normalize_u8_frames,
+        preprocess_image_u8,
+        s2d_pack_frames,
+    )
+
+    rs = np.random.RandomState(24)
+    pre = [preprocess_image_u8(f, *ZOO_SIZES, False, *ZOO_CANVAS)
+           for f in _draw_frames(rs, ZOO_FRAMES, ZOO_FRAME)]
+    canvas = np.stack([p.image for p in pre])
+    sizes = torch.tensor(np.stack([p.size for p in pre]), device=dev)
+    packed = normalize_u8_frames(torch.from_numpy(s2d_pack_frames(canvas, 4)).to(dev), sizes)
+    rgb = normalize_u8_frames(torch.from_numpy(canvas).to(dev), sizes)
+    return packed, rgb, sizes
+
+
+def _zoo_boxes(rs, b, n, h, w, lo=16.0, hi=400.0):
+    """(b, n, 4) boxes of lo-hi pixels inside an h x w image."""
+    wh = rs.uniform(lo, hi, size=(b, n, 2))
+    x1 = rs.uniform(0, w - 1 - wh[..., 0])
+    y1 = rs.uniform(0, h - 1 - wh[..., 1])
+    return np.stack([x1, y1, x1 + wh[..., 0], y1 + wh[..., 1]], -1).astype(np.float32)
+
+
+def _same_on_card(name, cpu_module, inputs, call, dev, rtol=RTOL_ZOO):
+    """The f32 module on the CPU and a copy on the card, on the same inputs:
+    each output within ``rtol`` of its largest magnitude."""
+    import copy
+
+    import torch
+
+    def to_card(x):
+        if isinstance(x, (list, tuple)):
+            return [to_card(v) for v in x]
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    def flat(out):
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    card = copy.deepcopy(cpu_module).to(dev)
+    with torch.inference_mode():
+        want = flat(call(cpu_module, *inputs))
+        got = flat(call(card, *to_card(inputs)))
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.float().cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            _fail(f"zoo: {name} on the card: shape {tuple(g.shape)} vs {tuple(w.shape)} "
+                  f"or not finite")
+        scale = w.abs().max().item()
+        worst = max(worst, (g - w).abs().max().item() / max(scale, 1e-30))
+    print(f"[zoo] {name}: card (f32, TF32 off) against the CPU, largest error "
+          f"{worst:.3e} of the largest magnitude (tolerance {rtol})")
+    if not worst <= rtol:
+        _fail(f"zoo: {name} differs on the card from the CPU by {worst:.3e}")
+
+
+def _zoo_correctness(dev):
+    """Each zoo piece at a reduced size, f32 with TF32 off, on the card
+    against the same module on the CPU (same weights, same inputs)."""
+    import torch
+    from mega_pytorch_tpu_torch.config import get_default_cfg
+    from mega_pytorch_tpu_torch.data.transforms import s2d_pack_frames
+    from mega_pytorch_tpu_torch.models.backbone import fbnet, fpn
+    from mega_pytorch_tpu_torch.models.layers import (
+        DeformRoIPoolingPack,
+        ModulatedDeformRoIPoolingPack,
+        init_module_,
+    )
+    from mega_pytorch_tpu_torch.models.roi_heads.combined import CombinedROIHeads
+    from mega_pytorch_tpu_torch.models.roi_heads.subsample import SampledRois
+    from mega_pytorch_tpu_torch.models.rpn import retinanet
+    from mega_pytorch_tpu_torch.ops.deform_conv import DFConv2d
+    from mega_pytorch_tpu_torch.ops.roi_pool import roi_pool
+
+    h, w = ZOO_SMALL
+    print(f"[zoo] correctness at a reduced size: {ZOO_FRAMES} frames of {h}x{w} "
+          f"(s2d(4)-packed), R-50-FPN, RetinaNet with 80 classes on P3-P7, the mask and "
+          f"keypoint heads on P2 (20 ROIs an image), FBNet default on one frame, ops on "
+          f"small maps")
+    cpu_gen = torch.Generator().manual_seed(0)
+    rs = np.random.RandomState(25)
+    x = torch.from_numpy(s2d_pack_frames(
+        (rs.randn(ZOO_FRAMES, h, w, 3) * 50).astype(np.float32), 4))
+    body = init_module_(fpn.ResNetFPNBody("R-50"), cpu_gen)
+    _same_on_card("R-50-FPN body", body, [x], lambda m, a: m(a), dev)
+    with torch.inference_mode():
+        feats = body(x)
+    top = init_module_(fpn.FPN(256, "maxpool"), cpu_gen)
+    _same_on_card("FPN maxpool", top, [feats], lambda m, a: m(a), dev)
+    p6p7 = init_module_(fpn.FPN(256, "p6p7", in_channels=(None, 512, 1024, 2048)), cpu_gen)
+    _same_on_card("FPN p6p7 (RetinaNet)", p6p7, [[None, *feats[1:]]],
+                                      lambda m, a: m(a), dev)
+    with torch.inference_mode():
+        levels = p6p7([None, *feats[1:]])
+    head = init_module_(retinanet.RetinaNetHead(256), cpu_gen)
+    head.cls_logits.weight.mul_(5.0)  # scores spread past the 0.05 threshold
+    _same_on_card("RetinaNet head", head, [levels],
+                                            lambda m, a: [t for part in m(a) for t in part], dev)
+    # inference on the CPU's head outputs, on both devices: equal keep sets
+    with torch.inference_mode():
+        logits, deltas = head(levels)
+    anchors = retinanet.retinanet_anchors([tuple(f.shape[1:3]) for f in levels])
+    size = (float(h), float(w))
+    for i in range(ZOO_FRAMES):
+        args = ([a for a in anchors], [l[i] for l in logits], [d[i] for d in deltas])
+        want = retinanet.retinanet_inference(*args, size)
+        got = [t.cpu() for t in retinanet.retinanet_inference(
+            *[[t.to(dev) for t in a] for a in args], size)]
+        box_err = (got[0] - want[0]).abs().max().item() / want[0].abs().max().item()
+        score_err = (got[1] - want[1]).abs().max().item()
+        same = (torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
+                and box_err <= RTOL_ZOO and score_err <= RTOL_ZOO)
+        kept = int(want[3].sum())
+        print(f"[zoo] retinanet_inference image {i}: {kept} kept on the CPU; on the card "
+              f"the same keep set and labels {same}, boxes within {box_err:.3e} of the "
+              f"largest coordinate, scores within {score_err:.3e}")
+        if not same or kept == 0:
+            _fail("zoo: RetinaNet's keep set on the card differs from the CPU's (or is empty)")
+
+    rois = torch.from_numpy(_zoo_boxes(rs, ZOO_FRAMES, 20, h, w, 8.0, 60.0))
+    labels = torch.from_numpy(rs.randint(1, 81, size=(ZOO_FRAMES, 20)))
+    masks = torch.from_numpy(rs.rand(ZOO_FRAMES, 4, h, w) > 0.5)
+    matched = torch.from_numpy(rs.randint(0, 4, size=(ZOO_FRAMES, 20)))
+    heads = init_module_(CombinedROIHeads(256, True, True, 81, 17, spatial_scale=0.25),
+                         cpu_gen)
+    with torch.inference_mode():
+        p2 = top(feats)[0]
+
+    def heads_call(m, p2, boxes, lab, msk, match):
+        rois_ = SampledRois(boxes, torch.ones_like(lab, dtype=torch.bool), lab,
+                            torch.zeros_like(boxes))
+        return [m.mask_probs(p2, boxes, lab), m.mask_losses(p2, rois_, msk, match)["loss_mask"],
+                m.keypoint_logits(p2, boxes)]
+
+    _same_on_card("CombinedROIHeads", heads,
+                                            [p2, rois, labels, masks, matched],
+                                            heads_call, dev)
+    cfg = get_default_cfg()
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32"])
+    trunk = init_module_(fbnet.build_fbnet_backbone(cfg), cpu_gen)
+    img = torch.from_numpy((rs.randn(1, h, w, 3) * 50).astype(np.float32))
+    _same_on_card("FBNet default trunk", trunk, [img],
+                                         lambda m, a: m(a), dev)
+    with torch.inference_mode():
+        t_out = trunk(img)
+    for group in ("rpn", "bbox", "mask"):
+        hd = init_module_(fbnet.build_fbnet_head(cfg, group, trunk.out_channels), cpu_gen)
+        _same_on_card(f"FBNet default {group} group", hd, [t_out],
+                                                lambda m, a: m(a), dev)
+
+    c4 = torch.from_numpy(rs.randn(1, 10, 14, 64).astype(np.float32))
+    pool_rois = torch.from_numpy(_zoo_boxes(rs, 1, 30, 160, 224, 4.0, 150.0))
+    with torch.inference_mode():
+        want = roi_pool(c4, pool_rois, 1 / 16.0)
+        got = roi_pool(c4.to(dev), pool_rois.to(dev), 1 / 16.0).cpu()
+    print(f"[zoo] roi_pool (1, 10, 14, 64), 30 ROIs: card equal to the CPU bit for bit: "
+          f"{torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        _fail("zoo: roi_pool on the card differs from the CPU")
+    fmap = torch.from_numpy(rs.randn(1, 12, 16, 32).astype(np.float32))
+    for modulated in (False, True):
+        dconv = init_module_(DFConv2d(32, 32, with_modulated_dcn=modulated,
+                                      deformable_groups=2), cpu_gen)
+        dconv.offset.weight.normal_(0.0, 0.05, generator=cpu_gen)  # offsets take effect
+        tag = "v2" if modulated else "v1"
+        _same_on_card(f"DFConv2d {tag}", dconv, [fmap],
+                                                 lambda m, a: m(a), dev)
+        cls = ModulatedDeformRoIPoolingPack if modulated else DeformRoIPoolingPack
+        pack = init_module_(cls(1 / 8.0, 7, 32, False, sample_per_part=4, trans_std=0.1,
+                                deform_fc_channels=64), cpu_gen)
+        for name in ("offset_fc2", "mask_fc1"):
+            if hasattr(pack, name):
+                getattr(pack, name).weight.normal_(0.0, 0.05, generator=cpu_gen)
+        _same_on_card(cls.__name__, pack, [fmap[0], pool_rois[0] * 0.6],
+                                    lambda m, a, r: m(a, r), dev)
+
+
+def _time_folded_stem(gen, dev, smi):
+    """The folded stem pool (frame_rows) at the MEGA 12-lane step's 24 frames:
+    bit for bit the unfolded kernel on every frame's rows and the plain
+    version, junk in the seam rows; the folded stem (pad, conv on the strip,
+    pool, slice) timed against the unfolded one (conv, pool); the unfolded
+    pool timed beside the folded one and its plain version."""
+    import torch
+    import torch.nn.functional as F
+    from mega_pytorch_tpu_torch.models.backbone.resnet import Stem
+    from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+
+    n, t, u, s = 2 * LANES, 152, 256, 153
+    y = (torch.randn(n, t, u, 256, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    scale = torch.rand(256, generator=gen, device=dev) + 0.5
+    shift = torch.randn(256, generator=gen, device=dev)
+    junk = (torch.randn(n, s - t, u, 256, generator=gen, device=dev) * 50).to(torch.bfloat16)
+    folded = torch.cat([y, junk], 1).reshape(1, n * s, u, 256)
+    before = sp.stem_pool_packed.launches
+    got = sp.stem_pool_packed(folded, scale, shift, 64, frame_rows=s)
+    unfolded = sp.stem_pool_packed(y, scale, shift, 64)
+    launched = sp.stem_pool_packed.launches - before
+    plain = sp.stem_pool_packed_reference(folded, scale, shift, 64, frame_rows=s)
+    torch.cuda.synchronize()
+    rows_equal = torch.equal(got.reshape(n, s, u, 64)[:, :t], unfolded)
+    plain_equal = torch.equal(got, plain)
+    del plain
+    from mega_pytorch_tpu_torch.tools.kernel_bench import time_alternating
+
+    plain_ms, ms_u, ms_f = time_alternating(
+        [lambda: sp.stem_pool_packed_reference(folded, scale, shift, 64, frame_rows=s),
+         lambda: sp.stem_pool_packed(y, scale, shift, 64),
+         lambda: sp.stem_pool_packed(folded, scale, shift, 64, frame_rows=s)],
+        9, TIMING_INNER)
+    bound = _bound(_nbytes(folded, got), f32_ops=4 * folded.numel())
+    print(f"[zoo] stem_pool folded (1, {n * s}, {u}, 256), frame_rows {s} ({n} frames of {t} "
+          f"rows, one junk seam row each): rows equal to the unfolded kernel's bit for bit "
+          f"{rows_equal}, equal to the plain version {plain_equal}; kernel {ms_f:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, unfolded ({n}, {t}, {u}, 256) {ms_u:.4f} ms; folded "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); {smi}")
+    if not (rows_equal and plain_equal) or launched != 2:
+        _fail("zoo: the folded stem pool differs from the unfolded kernel or its plain version")
+    del folded, junk, got, unfolded
+
+    stem = Stem(64, torch.bfloat16, dev)
+    stem.init_weights(gen)
+    stem.eval().requires_grad_(False)
+    x = (torch.randn(n, t, u, 48, generator=gen, device=dev) * 50).to(torch.bfloat16)
+
+    def unfolded_stem():
+        return stem(x)
+
+    def folded_stem():
+        strip = F.pad(x, (0, 0, 0, 0, 0, 1)).reshape(1, n * s, u, 48)
+        yy = F.conv2d(strip.permute(0, 3, 1, 2), stem.w3, padding=1).permute(0, 2, 3, 1)
+        out = sp.stem_pool_packed(yy, stem.scale4, stem.shift4, 64, frame_rows=s)
+        return out.reshape(n, s, u, 64)[:, :t].permute(0, 3, 1, 2)
+
+    with torch.inference_mode():
+        diff = (folded_stem().float() - unfolded_stem().float()).abs().max().item()
+        ms_fs, ms_us = _time_pair(unfolded_stem, folded_stem, repeats=9)
+    print(f"[zoo] whole stem on {n} packed frames: folded (pad, conv on the (1, {n * s}, {u}, "
+          f"48) strip, pool, slice) {ms_fs:.4f} ms, unfolded (conv, pool) {ms_us:.4f} ms; "
+          f"largest difference between the two {diff:.3e}; {smi}")
+    return dict(ms=ms_f, plain_ms=plain_ms, unfolded_ms=ms_u, stem_ms=ms_fs,
+                unfolded_stem_ms=ms_us, max_abs_err=0.0, library_ms=None, **bound)
+
+
+def phase_zoo(smi):
+    """The detector zoo at published widths, bf16, random weights from
+    ``torch.Generator("cuda").manual_seed(0)``: R-50-FPN (body and FPN with
+    the max-pool top block on two packed 800x1344 canvases: one stem pool
+    launch), RetinaNet R-50-FPN (P3-P7, the head, inference per image), the
+    mask and keypoint heads through ``CombinedROIHeads`` on P2, FBNet's
+    default arch and head groups, ROIPool, DFConv2d and the deformable ROI
+    pooling modules; the correctness of each at a reduced size on the card
+    against the CPU; the folded stem pool. Returns (launches of the zoo
+    path, the folded stem pool's table entry)."""
+    import torch
+    from mega_pytorch_tpu_torch.config import get_default_cfg
+    from mega_pytorch_tpu_torch.models.backbone import fbnet, fpn
+    from mega_pytorch_tpu_torch.models.layers import (
+        DeformRoIPoolingPack,
+        ModulatedDeformRoIPoolingPack,
+        init_module_,
+    )
+    from mega_pytorch_tpu_torch.models.roi_heads.combined import CombinedROIHeads
+    from mega_pytorch_tpu_torch.models.roi_heads.subsample import SampledRois
+    from mega_pytorch_tpu_torch.models.rpn import retinanet
+    from mega_pytorch_tpu_torch.ops.deform_conv import DFConv2d
+    from mega_pytorch_tpu_torch.ops.roi_pool import roi_pool
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    bf = torch.bfloat16
+    kernels = _kernels()
+    packed, rgb, sizes = _zoo_frames(dev)
+    im_h, im_w = (float(v) for v in sizes[0].tolist())
+    body = init_module_(fpn.ResNetFPNBody("R-50", dtype=bf, device=dev), gen, cast=True)
+    top = init_module_(fpn.FPN(256, "maxpool", dtype=bf, device=dev), gen, cast=True)
+    p6p7 = init_module_(fpn.FPN(256, "p6p7", in_channels=(None, 512, 1024, 2048), dtype=bf,
+                                device=dev), gen, cast=True)
+    head = init_module_(retinanet.RetinaNetHead(256, dtype=bf, device=dev), gen, cast=True)
+    heads = init_module_(CombinedROIHeads(256, True, True, 81, 17, spatial_scale=0.25,
+                                          dtype=bf, device=dev), gen, cast=True)
+    cfg = get_default_cfg()
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "bfloat16"])
+    trunk = init_module_(fbnet.build_fbnet_backbone(cfg, dev), gen, cast=True)
+    fb_heads = {g: init_module_(fbnet.build_fbnet_head(cfg, g, trunk.out_channels, dev), gen,
+                                cast=True) for g in ("rpn", "bbox", "mask")}
+    rs = np.random.RandomState(26)
+    det_boxes = torch.from_numpy(_zoo_boxes(rs, ZOO_FRAMES, 100, im_h, im_w)).to(dev)
+    det_labels = torch.from_numpy(rs.randint(1, 81, size=(ZOO_FRAMES, 100))).to(dev)
+    roi_boxes = torch.from_numpy(_zoo_boxes(rs, ZOO_FRAMES, 128, im_h, im_w)).to(dev)
+    sampled = SampledRois(roi_boxes, torch.ones(ZOO_FRAMES, 128, dtype=torch.bool, device=dev),
+                          torch.from_numpy(rs.randint(0, 81, size=(ZOO_FRAMES, 128))).to(dev),
+                          torch.zeros(ZOO_FRAMES, 128, 4, device=dev))
+    gt = _zoo_boxes(rs, ZOO_FRAMES, 16, im_h, im_w, 32.0, 600.0).round().astype(int)
+    gt_masks = torch.zeros(ZOO_FRAMES, 16, *ZOO_CANVAS, dtype=torch.bool, device=dev)
+    for b, g in np.ndindex(ZOO_FRAMES, 16):
+        x1, y1, x2, y2 = gt[b, g]
+        gt_masks[b, g, y1:y2, x1:x2] = True
+    matched = torch.from_numpy(rs.randint(0, 16, size=(ZOO_FRAMES, 128))).to(dev)
+
+    def retina_levels(feats):
+        return p6p7([None, *feats[1:]])
+
+    def retina_inference(logits, deltas, anchors):
+        return [retinanet.retinanet_inference(anchors, [l[i] for l in logits],
+                                              [d[i] for d in deltas], (im_h, im_w))
+                for i in range(ZOO_FRAMES)]
+
+    def fbnet_all():
+        t_out = trunk(rgb[:1])
+        return [t_out] + [h(t_out) for h in fb_heads.values()]
+
+    with torch.inference_mode():
+        # the zoo path once, counted from 0: every launch it makes
+        for k in kernels:
+            k.launches = 0
+        feats = body(packed)
+        pyramid = top(feats)
+        torch.cuda.synchronize()
+        fpn_launches = {k.__name__: k.launches for k in kernels}
+        levels = retina_levels(body(packed))
+        logits, deltas = head(levels)
+        anchors = retinanet.retinanet_anchors([tuple(f.shape[1:3]) for f in levels],
+                                              device=dev)
+        dets = retina_inference(logits, deltas, anchors)
+        probs = heads.mask_probs(pyramid[0], det_boxes, det_labels)
+        loss = heads.mask_losses(pyramid[0], sampled, gt_masks, matched)["loss_mask"]
+        kp = heads.keypoint_logits(pyramid[0], det_boxes)
+        fb = fbnet_all()
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+
+        shapes = [tuple(p.shape) for p in pyramid]
+        want = [(ZOO_FRAMES, ZOO_CANVAS[0] // s, ZOO_CANVAS[1] // s, 256) for s in (4, 8, 16, 32)]
+        want.append((ZOO_FRAMES, -(-ZOO_CANVAS[0] // 64), -(-ZOO_CANVAS[1] // 64), 256))
+        finite = all(bool(torch.isfinite(t).all()) for t in [*feats, *pyramid, *levels, *logits,
+                                                            *deltas, probs, loss, kp, *fb])
+        inside = all(bool(((d[0][:, 0::2] >= 0) & (d[0][:, 0::2] <= im_w - 1)
+                           & (d[0][:, 1::2] >= 0) & (d[0][:, 1::2] <= im_h - 1)).all()
+                          and torch.isfinite(d[1]).all()) for d in dets)
+        kept = [int(d[3].sum()) for d in dets]
+        print(f"[zoo] R-50-FPN on {ZOO_FRAMES} packed {ZOO_CANVAS[0]}x{ZOO_CANVAS[1]} canvases "
+              f"(images {int(im_h)}x{int(im_w)}): P2-P6 {shapes}; launches of the body + FPN "
+              f"call {fpn_launches}; RetinaNet levels {[tuple(f.shape[1:3]) for f in levels]}, "
+              f"kept {kept} of 100 an image, boxes inside the image {inside}; all bf16 outputs "
+              f"finite {finite}; mask loss {loss.item():.4f}")
+        if fpn_launches != dict(_NO_KERNEL, stem_pool_packed=1) or shapes != want:
+            _fail(f"zoo: R-50-FPN launched {fpn_launches} or gave {shapes}")
+        if not (finite and inside) or launches != dict(_NO_KERNEL, stem_pool_packed=2):
+            _fail(f"zoo: outputs not finite, boxes outside the image, or launches {launches}")
+
+        ms = {}
+        ms["R-50-FPN body + FPN, 2 frames"] = _sync_ms(lambda: top(body(packed)))[0]
+        ms["RetinaNet body"] = _sync_ms(lambda: body(packed))[0] / ZOO_FRAMES
+        ms["RetinaNet FPN (P3-P7)"] = _sync_ms(lambda: retina_levels(feats))[0] / ZOO_FRAMES
+        ms["RetinaNet head"] = _sync_ms(lambda: head(levels))[0] / ZOO_FRAMES
+        ms["RetinaNet inference"] = _sync_ms(
+            lambda: retina_inference(logits, deltas, anchors))[0] / ZOO_FRAMES
+        ms["mask_probs, 100 detections an image"] = _sync_ms(
+            lambda: heads.mask_probs(pyramid[0], det_boxes, det_labels))[0]
+        ms["mask_losses, 128 ROIs, 16 GT masks an image"] = _sync_ms(
+            lambda: heads.mask_losses(pyramid[0], sampled, gt_masks, matched))[0]
+        ms["keypoint_logits, 100 ROIs an image"] = _sync_ms(
+            lambda: heads.keypoint_logits(pyramid[0], det_boxes))[0]
+        ms["FBNet default, trunk + rpn, bbox, mask groups, 1 frame"] = _sync_ms(fbnet_all)[0]
+        ms["of which the FBNet trunk"] = _sync_ms(lambda: trunk(rgb[:1]))[0]
+        for g, h in fb_heads.items():
+            ms[f"of which the FBNet {g} group"] = _sync_ms(lambda h=h: h(fb[0]))[0]
+        retina = sum(v for k, v in ms.items() if k.startswith("RetinaNet"))
+        print(f"[zoo] ms (bf16, host clock, synchronised; RetinaNet per image, "
+              f"{retina:.2f} in all): {json.dumps({k: round(v, 3) for k, v in ms.items()})}; "
+              f"{smi}")
+        del feats, pyramid, levels, logits, deltas, dets, probs, kp, fb, gt_masks
+
+        # the zoo's ops at full width: ms, peak memory and the scratch above the inputs
+        c4_hw = (ZOO_CANVAS[0] // 16, ZOO_CANVAS[1] // 16)  # the C4 map: (50, 84)
+        c8_hw = (ZOO_CANVAS[0] // 8, ZOO_CANVAS[1] // 8)  # P3: (100, 168)
+        c4 = torch.randn(1, *c4_hw, 1024, generator=gen, device=dev).to(bf)
+        rois300 = torch.from_numpy(_zoo_boxes(rs, 1, 300, im_h, im_w)).to(dev)
+        ops = {}
+        ops[f"roi_pool 300 ROIs 7x7 on {tuple(c4.shape)} bf16"] = _peak(
+            lambda: roi_pool(c4, rois300, 1 / 16.0))
+        del c4
+        fmap = torch.randn(1, *c8_hw, 256, generator=gen, device=dev).to(bf)
+        for modulated in (False, True):
+            dconv = init_module_(DFConv2d(256, 256, with_modulated_dcn=modulated,
+                                          deformable_groups=2, dtype=bf, device=dev), gen)
+            dconv.offset.weight.normal_(0.0, 0.01, generator=gen)
+            ops[f"DFConv2d {'v2' if modulated else 'v1'} 256->256, 2 groups, "
+                f"{tuple(fmap.shape)} bf16"] = _peak(lambda: dconv(fmap))
+        c4_256 = torch.randn(*c4_hw, 256, generator=gen, device=dev)
+        for cls in (DeformRoIPoolingPack, ModulatedDeformRoIPoolingPack):
+            pack = init_module_(cls(1 / 16.0, 7, 256, False, sample_per_part=4, trans_std=0.1,
+                                    device=dev), gen)
+            ops[f"{cls.__name__} 300 ROIs, out 7, on {tuple(c4_256.shape)}"] = _peak(
+                lambda: pack(c4_256, rois300[0]))
+        for name, (t_ms, peak, scratch, out) in ops.items():
+            if not torch.isfinite(out).all():
+                _fail(f"zoo: {name} is not finite")
+        print("[zoo] ops: " + "; ".join(
+            f"{name}: {t_ms:.3f} ms, peak {peak:.0f} MB ({scratch:.0f} MB above its inputs)"
+            for name, (t_ms, peak, scratch, _) in ops.items()) + f"; {smi}")
+        del fmap, c4_256, ops
+
+    _zoo_correctness(dev)
+    folded = _time_folded_stem(gen, dev, smi)
+    torch.cuda.empty_cache()
+    return launches, folded
+
+
 def phase_ddp(smi):
     """DistributedDataParallel on the card: a one-rank NCCL process group
     (``parallel/ddp.py:init_distributed`` with a ``file://`` store in a
@@ -2275,6 +2745,7 @@ def main():
     demo_launches, _ = timed("demo", phase_demo, smi)
     gn_launches = timed("gn", phase_gn, smi)
     timed("native loader", phase_native_loader, smi)
+    zoo_launches, folded = timed("zoo", phase_zoo, smi)
 
     source = {
         "stem_pool_packed": ("cuda", "mega_pytorch_tpu_torch/csrc/stem_pool.cu",
@@ -2297,7 +2768,8 @@ def main():
     # (phase 10), the eval path (phase 11), MEGA training (phase 13), RDN,
     # FGFA and DFF training (phase 14), the DDP step (phase 15), test-time
     # augmentation through test_net (phase 17), the demo (phase 18), the GN
-    # base detector (phase 19), and the position-bias paths (phase 7) for
+    # base detector (phase 19), the zoo (phase 21: R-50-FPN, RetinaNet, the
+    # mask and keypoint heads, FBNet), and the position-bias paths (phase 7) for
     # the kernel no model path reaches; launches_per_step is what every step
     # (training: iteration; TTA: frame) of each run launched
     by_path = {"mega": lane_launches, **{m: c for m, (c, _) in methods.items()},
@@ -2306,7 +2778,7 @@ def main():
                "position-bias paths": path_launches, "train": train_launches,
                **{f"{m} train": c for m, (c, _) in method_training.items()},
                "rdn train ddp": ddp_launches, "tta": tta_launches, "demo": demo_launches,
-               "gn base": gn_launches}
+               "gn base": gn_launches, "zoo": zoo_launches}
     per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()},
                         "eval path": eval_per_step, "train": train_per_iter,
                         **{f"{m} train": p for m, (_, p) in method_training.items()},
@@ -2314,6 +2786,7 @@ def main():
     print(f"[result] launches per kernel: stream (1 lane) {launches}; by path {by_path}")
     print(f"[result] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     rows["stem_pool_packed"]["rdn_shape"] = rdn_stem
+    rows["stem_pool_packed"]["folded"] = folded
     pos = rows["flash_relation_attention_pos"]
     pos["rdn_shapes"] = rdn_pos
     pos["max_abs_err"] = max([pos["max_abs_err"]] + [e["max_abs_err"] for e in rdn_pos])

@@ -10,6 +10,9 @@
 //   r_b'(t, u)  = max(z(t,u,(0,b')), z(t,u,(1,b')), z(t-1,u,(1,b')))
 //   out(t, u)   = max(r_0(t,u), r_1(t,u), r_1(t,u-1))
 // with -inf beyond the top and left borders, rounded once to the output type.
+// Folded layout (frame_rows = s): frames stacked along T at stride s; a row
+// t with t % s == 0 starts a frame and takes -inf as its row above, as row 0
+// does (JAX's frame_rows). The unfolded layout is s = T.
 //
 // Bound: device-memory bandwidth. One read of y and a quarter-size write
 // (MEGA's 24 frames: 478 MB in, 120 MB out in bf16, 0.178 ms at 3.35 TB/s);
@@ -24,7 +27,10 @@
 // first), and the a'=1 half of the row above (the row halo) and the corner
 // stay in registers from the previous row. So y is read from device memory
 // once per strip, plus the row above the strip and 1 / (2 W) of halo
-// columns, with no shared memory and no barrier. Scale and shift of the
+// columns, with no shared memory and no barrier. In the folded layout a
+// strip that starts at a frame's first row skips the row above, and the
+// walk resets the row-above registers to -inf at each frame's first row;
+// strips are cut without regard to frames. Scale and shift of the
 // lane's channels live in registers. The grid is sized from the occupancy
 // so that all blocks are on the card at once: 24 frames take 4 strips of
 // 38 rows per (frame, 64 columns), 2 frames 38 strips of 4 rows.
@@ -92,7 +98,7 @@ template <typename T>
 __global__ void __launch_bounds__(32 * WARPS, 3)
 stem_pool_kernel(const T* __restrict__ y, const float* __restrict__ scale,
                  const float* __restrict__ shift, T* __restrict__ out, int rows,
-                 int cols, int strip_rows) {
+                 int cols, int strip_rows, int frame_rows) {
   using L = Lane<T>;
   using Z = typename L::Z;
   constexpr int W = L::W;
@@ -122,10 +128,11 @@ stem_pool_kernel(const T* __restrict__ y, const float* __restrict__ scale,
   };
   const Z neg = L::pack(-INFINITY, -INFINITY), zero = L::pack(0.0f, 0.0f);
 
-  Z p2[W + 1], p3[W + 1];  // u of the row above, phases 2 and 3 (-inf above row 0)
+  Z p2[W + 1], p3[W + 1];  // u of the row above, phases 2 and 3 (-inf above a frame)
 #pragma unroll
   for (int j = 0; j <= W; ++j) p2[j] = p3[j] = neg;
-  if (t0 > 0) {
+  int in_frame = t0 % frame_rows;  // row t's index within its frame
+  if (in_frame != 0) {
     typename L::Raw r2[W + 1], r3[W + 1];
 #pragma unroll
     for (int j = 0; j <= W; ++j) {
@@ -141,6 +148,11 @@ stem_pool_kernel(const T* __restrict__ y, const float* __restrict__ scale,
 
 #pragma unroll 1
   for (int t = t0; t < t_end; ++t) {
+    if (in_frame == 0) {  // a frame's first row: nothing above it
+#pragma unroll
+      for (int j = 0; j <= W; ++j) p2[j] = p3[j] = neg;
+    }
+    if (++in_frame == frame_rows) in_frame = 0;
     typename L::Raw r[W + 1][4];
     r[0][1] = L::load(at(t, 0, 1));
     r[0][3] = L::load(at(t, 0, 3));
@@ -171,7 +183,7 @@ stem_pool_kernel(const T* __restrict__ y, const float* __restrict__ scale,
 
 template <typename T>
 cudaError_t launch(const T* y, const float* scale, const float* shift, T* out,
-                   int n_img, int rows, int cols, cudaStream_t s) {
+                   int n_img, int rows, int cols, int frame_rows, cudaStream_t s) {
   constexpr int threads = 32 * WARPS, tile = WARPS * Lane<T>::W;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
@@ -189,25 +201,42 @@ cudaError_t launch(const T* y, const float* scale, const float* shift, T* out,
   const long long strips = std::max(1LL, std::min((long long)per_sm * sms / pairs, most));
   const int strip_rows = (int)((rows + strips - 1) / strips);
   const dim3 grid((rows + strip_rows - 1) / strip_rows, tiles, n_img);
-  stem_pool_kernel<T><<<grid, threads, 0, s>>>(y, scale, shift, out, rows, cols, strip_rows);
+  stem_pool_kernel<T><<<grid, threads, 0, s>>>(y, scale, shift, out, rows, cols, strip_rows,
+                                               frame_rows);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int stem_pool_packed_launch(const void* y, const void* scale,
-                                       const void* shift, void* out, int n_img,
-                                       int rows, int cols, int out_ch,
-                                       int is_bf16, void* stream) {
+int dispatch(const void* y, const void* scale, const void* shift, void* out, int n_img,
+             int rows, int cols, int out_ch, int is_bf16, void* stream, int frame_rows) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (out_ch != O) return (int)cudaErrorInvalidValue;
+  if (out_ch != O || frame_rows < 0) return (int)cudaErrorInvalidValue;
   if (n_img == 0 || rows == 0 || cols == 0) return (int)cudaGetLastError();
+  if (frame_rows == 0) frame_rows = rows;
   const auto* sc = static_cast<const float*>(scale);
   const auto* sh = static_cast<const float*>(shift);
   if (is_bf16) {
     return (int)launch(static_cast<const __nv_bfloat16*>(y), sc, sh,
-                       static_cast<__nv_bfloat16*>(out), n_img, rows, cols, s);
+                       static_cast<__nv_bfloat16*>(out), n_img, rows, cols, frame_rows, s);
   }
   return (int)launch(static_cast<const float*>(y), sc, sh, static_cast<float*>(out), n_img,
-                     rows, cols, s);
+                     rows, cols, frame_rows, s);
+}
+
+}  // namespace
+
+// unfolded layout: one frame per image of the batch
+extern "C" int stem_pool_packed_launch(const void* y, const void* scale,
+                                       const void* shift, void* out, int n_img,
+                                       int rows, int cols, int out_ch,
+                                       int is_bf16, void* stream) {
+  return dispatch(y, scale, shift, out, n_img, rows, cols, out_ch, is_bf16, stream, 0);
+}
+
+// folded layout: frames stacked along the rows at stride frame_rows (0: rows)
+extern "C" int stem_pool_packed_folded_launch(const void* y, const void* scale,
+                                              const void* shift, void* out, int n_img,
+                                              int rows, int cols, int out_ch,
+                                              int is_bf16, void* stream, int frame_rows) {
+  return dispatch(y, scale, shift, out, n_img, rows, cols, out_ch, is_bf16, stream,
+                  frame_rows);
 }

@@ -32,6 +32,7 @@ _I = ctypes.c_int
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "stem_pool_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "stem_pool_packed_folded_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I),
     "relation_attention_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
@@ -105,6 +106,8 @@ def build_library(csrc: Path, build_dir: Path) -> KernelLibrary:
         ]
     lib = ctypes.CDLL(str(target))
     for name, argtypes in SIGNATURES.items():
+        if not hasattr(lib, name):  # another commit's library may predate an entry
+            continue
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

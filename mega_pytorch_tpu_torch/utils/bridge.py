@@ -8,11 +8,15 @@ the tree that renames leaves and inverts layouts:
   ``conv2d``'s (O, I / groups, kh, kw) by the same transpose);
   ``nn.Dense`` ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as it
   is;
-- ``nn.GroupNorm`` ``scale`` → ``weight``, ``bias`` as it is;
+- ``nn.GroupNorm`` ``scale`` → ``weight``, ``bias`` as it is (the ResNets'
+  32 groups and FBNet's ``*_bn``, one group);
 - ``nn.ConvTranspose(transpose_kernel=True)`` ``kernel`` (kh, kw, out, in)
-  (FlowNetS's upsamplers) → ``conv_transpose2d``'s (in, out, kh, kw)
-  ``weight`` by the same 4-D transpose, with no spatial flip: flax's
-  transposed kernel is the gradient-of-convolution form PyTorch applies;
+  (FlowNetS's upsamplers, the zoo's ``conv5_mask`` and ``kps_score_lowres``)
+  → ``conv_transpose2d``'s (in, out, kh, kw) ``weight`` by the same 4-D
+  transpose, with no spatial flip: flax's transposed kernel is the
+  gradient-of-convolution form PyTorch applies;
+- ``DFConv2d``'s own ``kernel`` (k, k, Cin, Cout) → its ``weight`` (Cout,
+  Cin, k, k), as a conv's;
 - FrozenBN ``weight``/``bias``/``running_mean``/``running_var`` as they are;
 - RelationAttention ``u`` (g, E; MEGA only), ``Wg.kernel`` (E, g),
   ``Wg.bias``, ``Wv_kernel`` (g, feat, d) and ``Wv_bias`` as they are.

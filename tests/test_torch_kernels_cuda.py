@@ -69,6 +69,29 @@ def test_stem_pool_kernel_exact(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("frames,rows", [(3, 8), (5, 37), (2, 1)])
+def test_stem_pool_kernel_folded_exact(cuda, dtype, frames, rows):
+    """The folded layout (frames stacked along T at stride rows + 1, random
+    junk in the seam rows) against its plain version and, frame by frame,
+    against the unfolded kernel, bit for bit; frame_rows = T is the
+    unfolded layout."""
+    rs = np.random.RandomState(6)
+    o, s = 64, rows + 1
+    y = torch.from_numpy(rs.randn(2, frames * s, 33, 4 * o).astype(np.float32) * 2)
+    y = y.to(cuda, getattr(torch, dtype))
+    scale = torch.from_numpy((rs.rand(4 * o) + 0.5).astype(np.float32)).to(cuda)
+    shift = torch.from_numpy(rs.randn(4 * o).astype(np.float32)).to(cuda)
+    got = sp.stem_pool_packed(y, scale, shift, o, frame_rows=s)
+    assert torch.equal(got, sp.stem_pool_packed_reference(y, scale, shift, o, frame_rows=s))
+    for i in range(frames):
+        alone = sp.stem_pool_packed(y[:, i * s:i * s + rows].contiguous(), scale, shift, o)
+        assert torch.equal(got[:, i * s:i * s + rows], alone)
+    assert torch.equal(sp.stem_pool_packed(y, scale, shift, o, frame_rows=frames * s),
+                       sp.stem_pool_packed(y, scale, shift, o))
+
+
+@pytest.mark.cuda
 def test_stem_pool_kernel_rejects_a_strided_input(cuda):
     y = torch.zeros(1, 4, 4, 256, device=cuda).permute(0, 2, 1, 3)
     s = torch.ones(256, device=cuda)
