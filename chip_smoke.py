@@ -147,7 +147,22 @@ Phases, each printing its own lines:
      1e-4 of the largest magnitude, RetinaNet's keep sets equal; the folded
      stem pool (``frame_rows``) on 24 frames bit for bit the unfolded
      kernel and its plain version, the folded stem timed against the
-     unfolded one.
+     unfolded one;
+  22. classic head and MFU: a synthetic full-width R-101 Detectron pickle
+     (protocol 2, the AffineChannel scales and biases, momentum and fc1000
+     blobs) loaded by ``load_c2_weights`` into ``mega_R_101`` on the card,
+     every backbone and res5 tensor equal to its blob and the stem on a
+     packed frame bit for bit that of a model given the weights by
+     ``load_state_dict``; the base R-101 C4 body with res2-res5 from that
+     pickle on one packed 608x1024 frame (1 stem pool launch), then 300
+     proposals through ``ResNet50Conv5ROIFeatureExtractor`` and
+     ``FastRCNNPredictor`` in bf16, ms and peak memory, and the same
+     modules in f32 at 128x192 on the card against the CPU within 1e-4;
+     ``tools/profile_mfu.py``'s FLOP count of one MEGA step (1 lane,
+     320x512, f32) equal on the CPU and on the card, then the 12-lane MEGA
+     step and one ``mega_R_101`` training iteration counted (with the
+     launches of the counted step, as phases 6 and 13 require) and timed:
+     GFLOP a step, ms, achieved TFLOP/s and MFU against 989 TFLOP/s.
 Each phase prints its seconds. The last two lines are the kernel table and
 the device record as JSON. Any failed check raises, and the script exits
 non-zero.
@@ -282,6 +297,13 @@ RTOL_GN_F32, RTOL_GN_MAX, RTOL_GN_MEAN = 1e-4, 1e-1, 6e-2
 # RTOL_ZOO of the largest magnitude (f32 sums in another order, TF32 off)
 ZOO_FRAMES, ZOO_FRAME, ZOO_SIZES, ZOO_CANVAS = 2, (720, 1280), (800, 1333), (800, 1344)
 ZOO_SMALL, RTOL_ZOO = (128, 192), 1e-4
+# phase 22: proposals through the classic C4 head (maskrcnn-benchmark's
+# POST_NMS_TOP_N_TEST at one image); the MFU tool's step counted on the CPU
+# and on the card at MFU_SMALL (one lane, f32: 20x32x15 anchors, above the
+# RPN's 6000), then its 12-lane step and a training iteration, each after
+# MFU_WARMUP steps and timed over MFU_ITERS
+CLASSIC_ROIS = 300
+MFU_SMALL, MFU_WARMUP, MFU_ITERS = (320, 512), 3, 5
 
 
 def _fail(msg: str):
@@ -2264,7 +2286,7 @@ def _zoo_boxes(rs, b, n, h, w, lo=16.0, hi=400.0):
     return np.stack([x1, y1, x1 + wh[..., 0], y1 + wh[..., 1]], -1).astype(np.float32)
 
 
-def _same_on_card(name, cpu_module, inputs, call, dev, rtol=RTOL_ZOO):
+def _same_on_card(name, cpu_module, inputs, call, dev, rtol=RTOL_ZOO, tag="zoo"):
     """The f32 module on the CPU and a copy on the card, on the same inputs:
     each output within ``rtol`` of its largest magnitude."""
     import copy
@@ -2287,14 +2309,14 @@ def _same_on_card(name, cpu_module, inputs, call, dev, rtol=RTOL_ZOO):
     for g, w in zip(got, want):
         g = g.float().cpu()
         if g.shape != w.shape or not torch.isfinite(g).all():
-            _fail(f"zoo: {name} on the card: shape {tuple(g.shape)} vs {tuple(w.shape)} "
+            _fail(f"{tag}: {name} on the card: shape {tuple(g.shape)} vs {tuple(w.shape)} "
                   f"or not finite")
         scale = w.abs().max().item()
         worst = max(worst, (g - w).abs().max().item() / max(scale, 1e-30))
-    print(f"[zoo] {name}: card (f32, TF32 off) against the CPU, largest error "
+    print(f"[{tag}] {name}: card (f32, TF32 off) against the CPU, largest error "
           f"{worst:.3e} of the largest magnitude (tolerance {rtol})")
     if not worst <= rtol:
-        _fail(f"zoo: {name} differs on the card from the CPU by {worst:.3e}")
+        _fail(f"{tag}: {name} differs on the card from the CPU by {worst:.3e}")
 
 
 def _zoo_correctness(dev):
@@ -2653,6 +2675,281 @@ def phase_zoo(smi):
     return launches, folded
 
 
+def _c2_blobs(state_dict, rs):
+    """A Detectron blob dict for every backbone and res5 tensor of
+    ``state_dict`` (port names) that the C2 loader reaches, drawn from
+    ``rs``: conv weights (OIHW) at 1/sqrt(fan-in), AffineChannel scales near
+    1 and biases near 0; plus a (one-element) momentum blob a conv and the
+    fc1000 blobs a pickle also holds, which the loader skips by name.
+    Returns (blobs, {port name: blob name})."""
+    branch = {"conv1": "2a", "conv2": "2b", "conv3": "2c", "downsample_conv": "1",
+              "bn1": "2a", "bn2": "2b", "bn3": "2c", "downsample_bn": "1"}
+    blobs, names = {}, {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        if parts[-1] not in ("weight", "bias"):
+            continue
+        if parts[:3] == ["backbone", "stem", "conv1"]:
+            blob = "conv1_w"
+        elif parts[:3] == ["backbone", "stem", "bn1"]:
+            blob = "res_conv1_bn_" + ("s" if parts[-1] == "weight" else "b")
+        elif parts[0] == "backbone" or parts[:3] == ["extractor", "head", "layer4"]:
+            layer, block, mod, leaf = parts[-4:]
+            kind = "_w" if "conv" in mod else "_bn_s" if leaf == "weight" else "_bn_b"
+            blob = f"res{int(layer[len('layer'):]) + 1}_{block}_branch{branch[mod]}{kind}"
+        else:
+            continue
+        shape = tuple(t.shape)
+        if blob.endswith("_w"):
+            arr = rs.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+            blobs[blob + "_momentum"] = np.zeros(1, np.float32)
+        else:
+            arr = (1.0 if blob.endswith("_s") else 0.0) + 0.1 * rs.standard_normal(shape)
+        blobs[blob] = arr.astype(np.float32)
+        names[name] = blob
+    blobs["fc1000_w"] = rs.standard_normal((1000, 2048)).astype(np.float32)
+    blobs["fc1000_b"] = np.zeros(1000, np.float32)
+    return blobs, names
+
+
+def _packed_frame(hw, dev):
+    """One drawn frame on an ``hw`` canvas, s2d(4)-packed and normalised."""
+    import torch
+    from mega_pytorch_tpu_torch.data.transforms import normalize_u8_frames, s2d_pack_frames
+
+    frame = _draw_frames(np.random.RandomState(31), 1, hw)[0]
+    sizes = torch.tensor([hw], dtype=torch.float32, device=dev)
+    return normalize_u8_frames(torch.from_numpy(s2d_pack_frames(frame[None], 4)).to(dev), sizes)
+
+
+def _check_c2(dev, pickle_path, smi):
+    """A full-width R-101 Detectron pickle written to ``pickle_path`` and
+    loaded into a ``mega_R_101`` model on the card: every backbone and res5
+    tensor equal to its blob (in the tensor's dtype), the skipped blobs
+    reaching nothing, and the stem on one packed frame bit for bit that of a
+    second model given the same weights by ``load_state_dict`` (whose stem
+    differed before)."""
+    import pickle
+
+    import torch
+    from mega_pytorch_tpu_torch.config import get_preset
+    from mega_pytorch_tpu_torch.models.detectors import build_detection_model
+    from mega_pytorch_tpu_torch.utils.model_ingest import load_c2_weights
+
+    cfg = get_preset("mega_R_101")
+    model = build_detection_model(cfg, dev, torch.Generator(dev).manual_seed(0))
+    blobs, names = _c2_blobs(model.state_dict(), np.random.RandomState(32))
+    t0 = time.perf_counter()
+    with open(pickle_path, "wb") as f:
+        pickle.dump({"blobs": blobs}, f, protocol=2)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_c2_weights(str(pickle_path), model)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    own = model.state_dict()
+    wrong = [n for n, b in names.items()
+             if not torch.equal(own[n].cpu(), torch.from_numpy(blobs[b]).to(own[n].dtype))]
+    loaded = sum(1 for b in blobs if not b.endswith("_momentum") and not b.startswith("fc1000"))
+    twin = build_detection_model(cfg, dev, torch.Generator(dev).manual_seed(1))
+    packed = _packed_frame(CANVAS, dev)
+    with torch.inference_mode():
+        before = twin.backbone.stem(packed)
+        twin.load_state_dict(own)
+        got, want = model.backbone.stem(packed), twin.backbone.stem(packed)
+    same, differed = torch.equal(got, want), not torch.equal(before, want)
+    print(f"[c2] a synthetic Detectron R-101 pickle, {len(blobs)} blobs, "
+          f"{pickle_path.stat().st_size / 2**20:.0f} MB, written in {write_s:.2f} s and loaded "
+          f"into mega_R_101 on the card in {load_s:.2f} s: {len(names)} backbone and res5 "
+          f"tensors of {loaded} loadable blobs, {len(wrong)} unequal to their blobs; the stem "
+          f"on one packed {CANVAS[0]}x{CANVAS[1]} frame bit for bit that of a model given the "
+          f"weights by state_dict: {same} (before the load: {not differed}); {smi}")
+    if wrong or len(names) != loaded:
+        _fail(f"c2: {len(wrong)} tensors unequal to their blobs ({wrong[:3]}), or "
+              f"{len(names)} of {loaded} blobs loaded")
+    if not (same and differed):
+        _fail("c2: the loaded stem differs from one given the same weights by state_dict")
+
+
+def _classic_modules(dev, dtype, gen):
+    """The base R-101 C4 body and the classic box head, weights drawn from
+    ``gen`` and stored in ``dtype``, named as the C2 loader names them
+    (``backbone``, ``extractor.head``)."""
+    import torch
+    from mega_pytorch_tpu_torch.models.backbone.resnet import ResNetC4
+    from mega_pytorch_tpu_torch.models.layers import init_module_
+    from mega_pytorch_tpu_torch.models.roi_heads.extractors import (
+        ResNet50Conv5ROIFeatureExtractor,
+    )
+    from mega_pytorch_tpu_torch.models.roi_heads.predictors import FastRCNNPredictor
+
+    return init_module_(torch.nn.ModuleDict({
+        "backbone": ResNetC4("R-101", dtype=dtype, device=dev),
+        "extractor": ResNet50Conv5ROIFeatureExtractor("R-101", dtype=dtype, device=dev),
+        "predictor": FastRCNNPredictor(dtype=dtype, device=dev),
+    }), gen, cast=dtype != torch.float32)
+
+
+def _classic_forward(m, packed, rois):
+    """Body, classic head and predictor: (C4 map, ROI maps, logits, deltas)."""
+    c4 = m["backbone"](packed)
+    feats = m["extractor"](c4, rois)
+    return (c4, feats, *m["predictor"](feats))
+
+
+def _phase_classic_head(dev, pickle_path, kernels, smi):
+    """The base R-101 C4 body (res2-res5 from the pickle) on one packed
+    608x1024 frame, then CLASSIC_ROIS proposals through the classic head and
+    FastRCNNPredictor in bf16: one stem pool launch, finite outputs, ms and
+    peak memory; the same modules in f32 at 128x192 on the card against the
+    CPU. Returns the launches of the bf16 call."""
+    import torch
+    from mega_pytorch_tpu_torch.utils.model_ingest import load_c2_weights
+
+    head = _classic_modules(dev, torch.bfloat16, torch.Generator(dev).manual_seed(5))
+    load_c2_weights(str(pickle_path), head)
+    rs = np.random.RandomState(33)
+    packed = _packed_frame(CANVAS, dev)
+    rois = torch.from_numpy(_zoo_boxes(rs, 1, CLASSIC_ROIS, *CANVAS)).to(dev)
+    with torch.inference_mode():
+        for k in kernels:
+            k.launches = 0
+        out = _classic_forward(head, packed, rois)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        ms, peak, scratch, out = _peak(lambda: _classic_forward(head, packed, rois))
+        body_ms = _sync_ms(lambda: head["backbone"](packed))[0]
+    shapes = [tuple(t.shape) for t in out]
+    want = [(1, CANVAS[0] // 16, CANVAS[1] // 16, 1024), (1, CLASSIC_ROIS, 7, 7, 2048),
+            (1, CLASSIC_ROIS, 31), (1, CLASSIC_ROIS, 124)]
+    finite = all(bool(torch.isfinite(t).all()) for t in out)
+    print(f"[classic] base R-101 C4 body on one packed {CANVAS[0]}x{CANVAS[1]} frame, then "
+          f"{CLASSIC_ROIS} proposals through ResNet50Conv5ROIFeatureExtractor (14x14 ROIAlign, "
+          f"res5 with stride 2) and FastRCNNPredictor, bf16: {ms:.3f} ms (the body alone "
+          f"{body_ms:.3f}), peak {peak:.0f} MB ({scratch:.0f} MB above the weights and "
+          f"inputs); outputs {shapes}, finite {finite}; launches {launches}; {smi}")
+    if shapes != want or not finite or launches != dict(_NO_KERNEL, stem_pool_packed=1):
+        _fail(f"classic: outputs {shapes} (want {want}), finite {finite}, launches {launches}")
+    del head, out
+    rois_small = torch.from_numpy(_zoo_boxes(rs, 1, 16, *ZOO_SMALL, lo=8.0, hi=100.0))
+    _same_on_card("classic C4 body + head + FastRCNNPredictor at 128x192",
+                  _classic_modules("cpu", torch.float32, torch.Generator().manual_seed(6)),
+                  (_packed_frame(ZOO_SMALL, "cpu"), rois_small), _classic_forward, dev,
+                  tag="classic")
+    return launches
+
+
+def _time_operator_route():
+    """What the kernels' entries pay for being PyTorch operators (the MFU
+    tool's FLOP formulas hang on them): ``flash_relation_attention`` and
+    ``flash_relation_attention_pos`` through their operators against their
+    implementations called directly, at one lane of the global enhance, the
+    global residual and stage 0 (CUDA events, in turns; information only). Each
+    implementation counts its own launches, so the counts are put back."""
+    import torch
+    from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    rows = []
+    for name, (n, m), route, direct in (
+            ("none", (2175, 750), ra.flash_relation_attention, ra._none_impl),
+            ("none", (300, 750), ra.flash_relation_attention, ra._none_impl),
+            ("compute", (675, 3750), ra.flash_relation_attention_pos, ra._pos_impl)):
+        x = _attention_inputs(gen, 1, n, m, "cuda")
+        args = [x[k] for k in ("q", "k", "v", "uk")]
+        if name == "compute":
+            args += [x["rois"], x["refs"], x["wk"], x["wb"]]
+        args.append(x["valid"])
+        before = (ra.flash_relation_attention.launches, ra.flash_relation_attention_pos.launches)
+        op_ms, direct_ms = _time_pair(lambda: direct(*args), lambda: route(*args))
+        ra.flash_relation_attention.launches, ra.flash_relation_attention_pos.launches = before
+        rows.append(f"{name} ({n}, {m}): operator {op_ms:.4f} ms, direct {direct_ms:.4f} ms")
+    print("[mfu] kernel entries as operators, one lane (CUDA events over "
+          f"{TIMING_INNER} back-to-back calls, median of {TIMING_REPEATS} turns): "
+          + "; ".join(rows))
+
+
+def _phase_mfu(kernels, smi):
+    """``tools/profile_mfu.py``'s count and timing: one MEGA lockstep step
+    at MFU_SMALL with one lane counted on the CPU and on the card (equal
+    totals), then the 12-lane MEGA step and one ``mega_R_101`` training
+    iteration on the card, each counted once right after its warm-up with
+    the launches that step made (as the path's own phases require), then
+    timed. Returns ({path: launches}, {path: record})."""
+    import torch
+    from mega_pytorch_tpu_torch.tools import profile_mfu as pm
+
+    _time_operator_route()
+    counts = {}
+    for dev in ("cpu", "cuda"):
+        step, _ = pm.mega_step(1, MFU_SMALL, dev, "float32")
+        counts[dev] = pm.count_flops(step)
+        del step
+    cpu_flops, card_flops = counts["cpu"]["flops"], counts["cuda"]["flops"]
+    print(f"[mfu] one MEGA lockstep step, 1 lane, {MFU_SMALL[0]}x{MFU_SMALL[1]}, f32: "
+          f"{cpu_flops} FLOPs counted on the CPU, {card_flops} on the card (of which hand-"
+          f"written kernels {counts['cpu']['kernel_flops']} / {counts['cuda']['kernel_flops']}: "
+          f"the CPU runs attention's einsum path)")
+    if cpu_flops != card_flops or not counts["cuda"]["kernel_flops"]:
+        _fail(f"mfu: the same step counts {cpu_flops} FLOPs on the CPU, {card_flops} on the card")
+    launches, records = {}, {}
+    for path, make, expect in (
+            ("mfu mega step", lambda: pm.mega_step(LANES), PER_STEP["mega"]),
+            ("mfu train", pm.train_step, PER_ITER_TRAIN)):
+        step, per_step = make()
+        for _ in range(MFU_WARMUP):
+            step()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        c = pm.count_flops(step)
+        torch.cuda.synchronize()
+        launches[path] = {k.__name__: k.launches for k in kernels}
+        ms = pm.step_ms(step, 0, MFU_ITERS)
+        tflops = c["flops"] / (ms * 1e-3) / 1e12
+        rec = {"gflop_per_step": c["flops"] / 1e9,
+               "gflop_per_frame": c["flops"] / 1e9 / per_step,
+               "kernel_gflop": {k: v / 1e9 for k, v in c["kernel_flops"].items()},
+               "kernel_special_functions": c["special"],
+               "gflop_by_op": {k: v / 1e9 for k, v in c["by_op"].items()},
+               "ms_per_step": ms, "achieved_tflops": tflops, "mfu": tflops / pm.PEAK_TFLOPS}
+        records[path] = rec
+        print(f"[mfu] {path}: {rec['gflop_per_step']:.1f} GFLOP a step "
+              f"({rec['gflop_per_frame']:.1f} a {'sample' if 'train' in path else 'frame'}), "
+              f"{sum(rec['kernel_gflop'].values()):.2f} of them in hand-written kernels "
+              f"{rec['kernel_gflop']}; {ms:.2f} ms a step (median of {MFU_ITERS}); "
+              f"{tflops:.1f} TFLOP/s = {100 * rec['mfu']:.2f} % MFU of {pm.PEAK_TFLOPS} "
+              f"TFLOP/s; launches of the counted step {launches[path]}; {smi}")
+        by_op = {k: round(v, 3) for k, v in rec["gflop_by_op"].items()}
+        print(f"[mfu] {path}: GFLOP by operator {json.dumps(by_op)}; special functions "
+              f"{rec['kernel_special_functions']}")
+        if launches[path] != expect or not np.isfinite(tflops):
+            _fail(f"mfu: {path} launched {launches[path]} (want {expect})")
+        del step
+        torch.cuda.empty_cache()
+    return launches, records
+
+
+def phase_classic_mfu(smi):
+    """Detectron weights, the classic C4 head and the MFU count (phase 22).
+    Returns ({path: launches}, {path: MFU record})."""
+    import tempfile
+
+    import torch
+
+    dev = torch.device("cuda")
+    kernels = _kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        pickle_path = Path(tmp) / "R-101.pkl"
+        _check_c2(dev, pickle_path, smi)
+        torch.cuda.empty_cache()
+        launches = {"classic c4 head": _phase_classic_head(dev, pickle_path, kernels, smi)}
+    torch.cuda.empty_cache()
+    mfu_launches, records = _phase_mfu(kernels, smi)
+    launches.update(mfu_launches)
+    return launches, records
+
+
 def phase_ddp(smi):
     """DistributedDataParallel on the card: a one-rank NCCL process group
     (``parallel/ddp.py:init_distributed`` with a ``file://`` store in a
@@ -2746,6 +3043,7 @@ def main():
     gn_launches = timed("gn", phase_gn, smi)
     timed("native loader", phase_native_loader, smi)
     zoo_launches, folded = timed("zoo", phase_zoo, smi)
+    classic_launches, mfu = timed("classic head and mfu", phase_classic_mfu, smi)
 
     source = {
         "stem_pool_packed": ("cuda", "mega_pytorch_tpu_torch/csrc/stem_pool.cu",
@@ -2769,7 +3067,8 @@ def main():
     # FGFA and DFF training (phase 14), the DDP step (phase 15), test-time
     # augmentation through test_net (phase 17), the demo (phase 18), the GN
     # base detector (phase 19), the zoo (phase 21: R-50-FPN, RetinaNet, the
-    # mask and keypoint heads, FBNet), and the position-bias paths (phase 7) for
+    # mask and keypoint heads, FBNet), the classic C4 head and the MFU tool's
+    # counted steps (phase 22), and the position-bias paths (phase 7) for
     # the kernel no model path reaches; launches_per_step is what every step
     # (training: iteration; TTA: frame) of each run launched
     by_path = {"mega": lane_launches, **{m: c for m, (c, _) in methods.items()},
@@ -2778,11 +3077,13 @@ def main():
                "position-bias paths": path_launches, "train": train_launches,
                **{f"{m} train": c for m, (c, _) in method_training.items()},
                "rdn train ddp": ddp_launches, "tta": tta_launches, "demo": demo_launches,
-               "gn base": gn_launches, "zoo": zoo_launches}
+               "gn base": gn_launches, "zoo": zoo_launches, **classic_launches}
     per_step_by_path = {"mega": per_step, **{m: p for m, (_, p) in methods.items()},
                         "eval path": eval_per_step, "train": train_per_iter,
                         **{f"{m} train": p for m, (_, p) in method_training.items()},
-                        "rdn train ddp": ddp_per_iter, "tta": tta_per_frame}
+                        "rdn train ddp": ddp_per_iter, "tta": tta_per_frame,
+                        "mfu mega step": classic_launches["mfu mega step"],
+                        "mfu train": classic_launches["mfu train"]}
     print(f"[result] launches per kernel: stream (1 lane) {launches}; by path {by_path}")
     print(f"[result] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     rows["stem_pool_packed"]["rdn_shape"] = rdn_stem
@@ -2803,6 +3104,7 @@ def main():
             launches_by_path={p: c[kname] for p, c in by_path.items() if kname in c},
             launches_per_step={p: c[kname] for p, c in per_step_by_path.items()},
             **rows[kname]))
+    print(f"[result] mfu {json.dumps(mfu)}")
     print(f"[result] {smi}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

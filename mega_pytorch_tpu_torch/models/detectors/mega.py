@@ -178,7 +178,8 @@ class GeneralizedRCNNMEGA(WindowedRCNN):
 
 
 def build_mega_flagship(canvas_h: int, canvas_w: int, device="cuda",
-                        generator: torch.Generator | None = None, lanes: int = 1):
+                        generator: torch.Generator | None = None, lanes: int = 1,
+                        compute_dtype: str = "bfloat16"):
     """MEGA R-101 C4 in bf16 as the JAX ``build_mega_flagship`` configures it
     (3 stages, window 25 with the key at slot 12), its weights drawn on
     ``device`` from ``generator``. Frames arrive s2d(4)-packed
@@ -186,10 +187,12 @@ def build_mega_flagship(canvas_h: int, canvas_w: int, device="cuda",
 
     ``lanes`` is the lockstep lane count it is built for (the JAX package's
     ``batch``; 12 in its bench): it sizes nothing in the weights, which serve
-    any lane count, and is kept as ``model.lanes`` for the engines."""
+    any lane count, and is kept as ``model.lanes`` for the engines.
+    ``compute_dtype`` "float32" builds the same model in f32 (the MFU tool
+    counts a step's FLOPs on the CPU so)."""
     if canvas_h % 16 or canvas_w % 16:
         raise ValueError("canvas sides must be multiples of 16")
-    c = RCNNConfig(depth="R-101", compute_dtype="bfloat16")
+    c = RCNNConfig(depth="R-101", compute_dtype=compute_dtype)
     v = VidConfig(method="mega", base_stage=3, all_frame_interval=25,
                   key_frame_location=12)
     return seeded_flagship(GeneralizedRCNNMEGA(c, v, device=device), device,

@@ -1,4 +1,8 @@
-"""Box predictor (counterpart of ``mega_pytorch_tpu/models/roi_heads/predictors.py``)."""
+"""Box predictors (counterpart of
+``mega_pytorch_tpu/models/roi_heads/predictors.py``): ``FPNPredictor``, the
+VID heads' linear class and box layers on flat ROI features, and
+``FastRCNNPredictor``, the classic C4 head's, which first averages each
+ROI's map."""
 
 from __future__ import annotations
 
@@ -21,3 +25,15 @@ class FPNPredictor(nn.Module):
     def forward(self, x: torch.Tensor):
         """x (..., D) → logits (..., C) f32, deltas (..., 4C) f32."""
         return self.cls_score(x).float(), self.bbox_pred(x).float()
+
+
+class FastRCNNPredictor(FPNPredictor):
+    """The global average of each ROI's (H, W) map, then the linear heads."""
+
+    def __init__(self, in_features=2048, num_classes=31, cls_agnostic_bbox_reg=False,
+                 dtype=torch.float32, device=None):
+        super().__init__(in_features, num_classes, cls_agnostic_bbox_reg, dtype, device)
+
+    def forward(self, x: torch.Tensor):
+        """x (..., H, W, C) ROI maps → logits (..., C) f32, deltas (..., 4C) f32."""
+        return super().forward(x.mean(dim=(-3, -2)))

@@ -8,6 +8,8 @@ kernel's mode "compute" computes the same position weight in-kernel; both
 kernels take the box geometry, the frequency ladder and Wg's row order from
 ``csrc/position_weight.cuh`` and their parameters as the block
 ``kernel_params`` packs (where their arithmetic differs: the header's note).
+The entry runs as a PyTorch operator (``ops/kernels/operators.py``) counted
+by ``position_bias_flops``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .build import check_launch, load_library
+from .operators import kernel_op
 
 GROUPS, EMBED_DIM = 16, 64  # the kernels' g and E (the MEGA configuration)
 
@@ -101,19 +104,25 @@ def kernel_params(wg_kernel: torch.Tensor, wg_bias: torch.Tensor) -> torch.Tenso
     return torch.cat([wg_kernel.reshape(-1), wg_bias, _FREQS[dev]])
 
 
-def fused_position_bias(rois, ref_rois, wg_kernel, wg_bias, embed_dim: int = 64):
-    """(N, 4) x (M, 4) → (g, N, M) f32 log position bias, f32 throughout.
+def position_bias_flops(rois_shape, refs_shape, wg_shape) -> int:
+    """FLOPs of ``fused_position_bias``: the Wg contraction of each pair's
+    E-wide embedding, N*M*E*g multiply-adds."""
+    e, g = wg_shape
+    return 2 * rois_shape[0] * refs_shape[0] * e * g
 
-    CPU tensors take the plain version (f32 sinusoids); CUDA tensors launch
-    the kernel (``fused_position_bias.launches``), which takes g = 16 and
-    embed_dim = 64."""
+
+def position_bias_special(rois_shape, refs_shape, wg_shape) -> dict:
+    """E sines and cosines and 4 logs (dx, dy, dw, dh) a pair, and the log
+    of each of the g weights."""
+    pairs = rois_shape[0] * refs_shape[0]
+    e, g = wg_shape
+    return {"sin_cos": pairs * e, "exp": 0, "log": pairs * (4 + g)}
+
+
+def _position_bias_impl(rois, ref_rois, wg_kernel, wg_bias, embed_dim):
     args = (rois, ref_rois, wg_kernel, wg_bias)
-    if any(t.requires_grad for t in args):
-        raise ValueError("fused_position_bias is inference-only")
     if rois.device.type == "cpu":
         return reference_position_bias(*args, embed_dim, sin_dtype=torch.float32)
-    if rois.device.type != "cuda":
-        raise ValueError(f"unsupported device {rois.device}")
     if embed_dim != EMBED_DIM:
         raise ValueError(f"the kernel takes embed_dim={EMBED_DIM}, got {embed_dim}")
     n, m = rois.shape[0], ref_rois.shape[0]
@@ -127,6 +136,28 @@ def fused_position_bias(rois, ref_rois, wg_kernel, wg_bias, embed_dim: int = 64)
     _launch(rois, ref_rois, kernel_params(wg_kernel, wg_bias), out)
     fused_position_bias.launches += 1
     return out
+
+
+_position_bias_op = kernel_op(
+    "position_bias", "(Tensor rois, Tensor ref_rois, Tensor wg_kernel, Tensor wg_bias, "
+    "int embed_dim) -> Tensor", _position_bias_impl,
+    lambda rois, refs, wg, *_: position_bias_flops(rois, refs, wg),
+    lambda rois, refs, wg, *_: position_bias_special(rois, refs, wg))
+
+
+def fused_position_bias(rois, ref_rois, wg_kernel, wg_bias, embed_dim: int = 64):
+    """(N, 4) x (M, 4) → (g, N, M) f32 log position bias, f32 throughout.
+
+    CPU tensors take the plain version (f32 sinusoids); CUDA tensors launch
+    the kernel (``fused_position_bias.launches``), which takes g = 16 and
+    embed_dim = 64. The operator ``position_bias``, counted by
+    ``position_bias_flops``."""
+    args = (rois, ref_rois, wg_kernel, wg_bias)
+    if any(t.requires_grad for t in args):
+        raise ValueError("fused_position_bias is inference-only")
+    if rois.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rois.device}")
+    return _position_bias_op(*args, embed_dim)
 
 
 def _launch(rois, ref_rois, params, out, lib=None):

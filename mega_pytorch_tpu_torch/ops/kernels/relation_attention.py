@@ -27,6 +27,10 @@ recomputed through ``reference_relation_attention`` (the JAX package's
 ``_vjp_bwd``), and ``RelationAttentionPosFunction`` gives mode "compute"
 one, recomputed through ``reference_relation_attention_pos`` with bf16
 sinusoids (the JAX package's ``_pos_vjp_bwd``).
+
+Each entry runs as a PyTorch operator (``ops/kernels/operators.py``) whose
+FLOP formula, ``attention_flops`` or ``attention_pos_flops``, is what
+``FlopCounterMode`` counts for it, on the card and on the CPU alike.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import math
 import torch
 
 from .build import check_launch, load_library
+from .operators import kernel_op
 from .position_bias import (
     EMBED_DIM,
     GROUPS,
@@ -264,33 +269,49 @@ def _launch(q, k, v, uk, valid, mode, rois=None, refs=None, params=None,
     return out
 
 
-def flash_relation_attention(q, k, v, uk, valid):
-    """Mode "none": (B, g, N, d) f32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (``flash_relation_attention.launches``)."""
-    if any(t.requires_grad for t in (q, k, v, uk, valid)):
-        raise ValueError("relation attention kernels are inference-only")
+def attention_flops(q_shape, k_shape) -> int:
+    """FLOPs of modes "none" and "input": q . k^T and p . v, 2 * B*g*N*M*d
+    multiply-adds (u . k^T is an input, computed outside the kernel)."""
+    b, g, n, d = q_shape
+    return 4 * b * g * n * k_shape[-2] * d
+
+
+def attention_pos_flops(q_shape, k_shape, wg_shape) -> int:
+    """FLOPs of mode "compute": those of ``attention_flops`` and the Wg
+    contraction of each pair's E-wide embedding, B*N*M*E*g multiply-adds."""
+    b, _, n, _ = q_shape
+    e, g = wg_shape
+    return attention_flops(q_shape, k_shape) + 2 * b * n * k_shape[-2] * e * g
+
+
+def attention_special(q_shape, k_shape) -> dict:
+    """Special functions of modes "none" and "input": one exp a logit."""
+    b, g, n, _ = q_shape
+    return {"sin_cos": 0, "exp": b * g * n * k_shape[-2], "log": 0}
+
+
+def attention_pos_special(q_shape, k_shape, wg_shape) -> dict:
+    """Special functions of mode "compute": one exp a logit; E sines and
+    cosines and 4 logs (dx, dy, dw, dh) a pair."""
+    b, _, n, _ = q_shape
+    pairs = b * n * k_shape[-2]
+    return dict(attention_special(q_shape, k_shape), sin_cos=pairs * wg_shape[0],
+                log=4 * pairs)
+
+
+def _none_impl(q, k, v, uk, valid):
     if q.device.type == "cpu":
         return reference_relation_attention(q, k, v, uk, None, valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, uk, valid)
     out = _launch(q, k, v, uk, valid, MODE_NONE)
     flash_relation_attention.launches += 1
     return out
 
 
-def flash_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
-                                 wg_bias, valid):
-    """Mode "compute": position weight evaluated in-kernel. CPU tensors take
-    the plain version (f32 sinusoids); CUDA tensors launch the kernel
-    (``flash_relation_attention_pos.launches``)."""
+def _pos_impl(q, k, v, uk, rois, ref_rois, wg_kernel, wg_bias, valid):
     extra = (rois, ref_rois, wg_kernel, wg_bias)
-    if any(t.requires_grad for t in (q, k, v, uk, valid, *extra)):
-        raise ValueError("relation attention kernels are inference-only")
     if q.device.type == "cpu":
         return reference_relation_attention_pos(q, k, v, uk, *extra, valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, uk, valid, extra)
     b, _, n, _ = q.shape
     m = k.shape[2]
@@ -305,21 +326,64 @@ def flash_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
     return out
 
 
-def flash_relation_attention_bias(q, k, v, uk, bias, valid):
-    """Mode "input": the (B, g, N, M) f32 log bias added to the scaled logits
-    before masking and the running max. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (``flash_relation_attention_bias.launches``)."""
-    if any(t.requires_grad for t in (q, k, v, uk, bias, valid)):
-        raise ValueError("relation attention kernels are inference-only")
+def _bias_impl(q, k, v, uk, bias, valid):
     if q.device.type == "cpu":
         return reference_relation_attention(q, k, v, uk, bias, valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, uk, valid, (bias,))
     _check_bias(q, k, bias)
     out = _launch(q, k, v, uk, valid, MODE_INPUT, bias=bias)
     flash_relation_attention_bias.launches += 1
     return out
+
+
+_OPERANDS = "Tensor q, Tensor k, Tensor v, Tensor uk"
+_none_op = kernel_op(
+    "relation_attention_none", f"({_OPERANDS}, Tensor valid) -> Tensor", _none_impl,
+    lambda q, k, *_: attention_flops(q, k), lambda q, k, *_: attention_special(q, k))
+_pos_op = kernel_op(
+    "relation_attention_pos", f"({_OPERANDS}, Tensor rois, Tensor ref_rois, "
+    "Tensor wg_kernel, Tensor wg_bias, Tensor valid) -> Tensor", _pos_impl,
+    lambda q, k, v, uk, rois, refs, wg, *_: attention_pos_flops(q, k, wg),
+    lambda q, k, v, uk, rois, refs, wg, *_: attention_pos_special(q, k, wg))
+_bias_op = kernel_op(
+    "relation_attention_bias", f"({_OPERANDS}, Tensor bias, Tensor valid) -> Tensor",
+    _bias_impl, lambda q, k, *_: attention_flops(q, k),
+    lambda q, k, *_: attention_special(q, k))
+
+
+def _entry_check(name, tensors):
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: relation attention kernels are inference-only")
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
+
+
+def flash_relation_attention(q, k, v, uk, valid):
+    """Mode "none": (B, g, N, d) f32. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (``flash_relation_attention.launches``).
+    The operator ``relation_attention_none``, counted by ``attention_flops``."""
+    _entry_check("flash_relation_attention", (q, k, v, uk, valid))
+    return _none_op(q, k, v, uk, valid)
+
+
+def flash_relation_attention_pos(q, k, v, uk, rois, ref_rois, wg_kernel,
+                                 wg_bias, valid):
+    """Mode "compute": position weight evaluated in-kernel. CPU tensors take
+    the plain version (f32 sinusoids); CUDA tensors launch the kernel
+    (``flash_relation_attention_pos.launches``). The operator
+    ``relation_attention_pos``, counted by ``attention_pos_flops``."""
+    ops = (q, k, v, uk, rois, ref_rois, wg_kernel, wg_bias, valid)
+    _entry_check("flash_relation_attention_pos", ops)
+    return _pos_op(*ops)
+
+
+def flash_relation_attention_bias(q, k, v, uk, bias, valid):
+    """Mode "input": the (B, g, N, M) f32 log bias added to the scaled logits
+    before masking and the running max. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (``flash_relation_attention_bias.launches``).
+    The operator ``relation_attention_bias``, counted by ``attention_flops``."""
+    _entry_check("flash_relation_attention_bias", (q, k, v, uk, bias, valid))
+    return _bias_op(q, k, v, uk, bias, valid)
 
 
 flash_relation_attention.launches = 0

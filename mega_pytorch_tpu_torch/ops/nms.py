@@ -149,3 +149,10 @@ def nms(boxes, scores, valid, iou_threshold: float, max_outputs: int,
     if not extras and not return_boxes:
         return keep_idx, keep_valid
     return keep_idx, keep_valid, tuple(kept_out)
+
+
+def batched_nms(boxes, scores, valid, iou_threshold: float, max_outputs: int):
+    """The JAX package's ``batched_nms`` (its ``nms`` vmapped over a leading
+    class or image axis): (B, N, 4) boxes, (B, N) scores and valid →
+    (B, K) keep_idx, keep_valid. ``nms`` here takes that axis already."""
+    return nms(boxes, scores, valid, iou_threshold, max_outputs)

@@ -84,3 +84,18 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
         tmp = torch.einsum("lrph,lhwc->lrpwc", wy[sl], feat[sl])
         out[sl] = torch.einsum("lrqw,lrpwc->lrpqc", wx[sl], tmp)
     return out
+
+
+def roi_align_batched(features: torch.Tensor, rois: torch.Tensor, batch_idx: torch.Tensor,
+                      spatial_scale: float, pooled_height: int = 7, pooled_width: int = 7,
+                      sampling_ratio: int = 0, max_grid: int = 10) -> torch.Tensor:
+    """ROIAlign of rois (R, 4) on the maps features (B, H, W, C) that
+    ``batch_idx`` (R,) names: the reference Pooler's ``[batch_idx | box]``
+    ROI format → (R, pooled_height, pooled_width, C) f32. As in the JAX
+    package, every map pools every ROI and each ROI's own is picked."""
+    args = (spatial_scale, pooled_height, pooled_width, sampling_ratio, max_grid)
+    b, r = features.shape[0], rois.shape[0]
+    if b == 1:
+        return roi_align(features, rois[None], *args)[0]
+    per_map = roi_align(features, rois.expand(b, r, 4), *args)  # (B, R, ph, pw, C)
+    return per_map[batch_idx.long(), torch.arange(r, device=rois.device)]

@@ -84,13 +84,14 @@ def _train_cfg(method: str):
     return get_preset(method.replace("_train", "_R_101"))
 
 
-def _lockstep_steps(model, lanes: int, rs: np.random.RandomState):
-    """Endless MEGA lockstep steps of ``lanes`` lanes on the one-video schedule."""
+def _lockstep_steps(model, lanes: int, rs: np.random.RandomState, canvas=CANVAS):
+    """Endless MEGA lockstep steps of ``lanes`` lanes on the one-video
+    schedule, frames drawn on a ``canvas`` (h, w)."""
     dev = next(model.parameters()).device
     v = model.v
     pool = torch.from_numpy(s2d_pack_frames(
-        rs.randint(0, 256, (16, *CANVAS, 3), dtype=np.uint8), 4)).to(dev)
-    size = torch.tensor(CANVAS, dtype=torch.float32, device=dev).expand(lanes, 2)
+        rs.randint(0, 256, (16, *canvas, 3), dtype=np.uint8), 4)).to(dev)
+    size = torch.tensor(canvas, dtype=torch.float32, device=dev).expand(lanes, 2)
     step = make_lockstep_step(model)
     carries = model.zero_carry(lanes, dev)
     sched = video_schedule(NUM_FRAMES, v.all_frame_interval - v.key_frame_location - 1,

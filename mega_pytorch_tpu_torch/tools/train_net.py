@@ -83,6 +83,7 @@ def main(argv=None, dist_init: str = "env://") -> dict:
     from ..utils import comm
     from ..utils.checkpoint import Checkpointer
     from ..utils.logger import setup_logger
+    from ..utils.misc import save_config
     from ..utils.model_ingest import load_reference_weights
     from .test_net import load_config
 
@@ -103,8 +104,7 @@ def main(argv=None, dist_init: str = "env://") -> dict:
                        if device.type == "cuda" else "")
                     + (f", rank {rank} of {world}" if world > 1 else ""))
         if comm.is_main_process():
-            with open(os.path.join(args.output_dir, "config.yml"), "w") as f:
-                f.write(cfg.dump())
+            save_config(cfg, os.path.join(args.output_dir, "config.yml"))
 
         model = build_training_model(cfg, device,
                                      torch.Generator(device).manual_seed(args.seed))

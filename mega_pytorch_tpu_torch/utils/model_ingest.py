@@ -23,10 +23,18 @@ followed by the bridge, so the two cannot drift apart.
 The fc layers that consume POOLED features (fc6, fcs.0, l_fcs.0) flatten
 (C, 7, 7) channel-major in the reference and (7, 7, C) spatial-major here,
 so their kernels are permuted.
+
+Detectron (Caffe2) pickles, the ``catalog://ImageNetPretrained/MSRA/R-*``
+backbones, take the same route: ``convert_c2_blobs`` names each blob as the
+JAX package does (stem and res2-res4 under ``backbone``, res5 under
+``extractor.head``), the bridge turns the tree into port names, and
+``merge_state_dict`` loads it, so the stem's packed kernels and the frozen
+BN affines are derived anew from the loaded values.
 """
 
 from __future__ import annotations
 
+import pickle
 import re
 
 import numpy as np
@@ -230,4 +238,81 @@ def load_flownet_weights(path: str, model: torch.nn.Module, logger=None) -> torc
             set_in_tree(tree, p, arr)
     loaded = state_dict_from_flax({"flownet": tree.get("flownet", {})})
     merge_state_dict(model, loaded, logger)
+    return model
+
+
+# -- Detectron (Caffe2) pickles: ImageNet-pretrained backbones ---------------------
+# The reference maps Detectron blob names to its own in
+# utils/c2_model_loading.py and loads them by suffix matching. The MSRA R-50 /
+# R-101 pickles hold the backbone's blobs with BN folded into AffineChannel
+# (a scale and a bias): that is FrozenBN with running mean 0 and variance 1,
+# a fresh model's statistics, so the scale and bias alone load it exactly.
+
+_C2_BLOCK = re.compile(r"^res(\d)_(\d+)_branch(1|2a|2b|2c)(_bn)?_(w|b|s)$")
+_C2_STEM = re.compile(r"^(?:res_)?conv1(_bn)?_(w|b|s)$")
+_BRANCH_CONV = {"2a": "conv1", "2b": "conv2", "2c": "conv3", "1": "downsample_conv"}
+_BRANCH_BN = {"2a": "bn1", "2b": "bn2", "2c": "bn3", "1": "downsample_bn"}
+_C2_LEAF = {"w": "kernel", "s": "weight", "b": "bias"}
+
+
+def c2_blob_to_path(name: str):
+    """One Detectron blob name → (flax path under the backbone, is res5), or
+    None for a blob that is not loaded (``*_momentum``, ``fc1000*``, the
+    rest)."""
+    if name.endswith("_momentum") or name.startswith("fc1000"):
+        return None
+    m = _C2_STEM.match(name)
+    if m:
+        is_bn, leaf = m.groups()
+        return ("stem", "bn1" if is_bn else "conv1", _C2_LEAF[leaf]), False
+    m = _C2_BLOCK.match(name)
+    if m:
+        stage, block, branch, is_bn, leaf = m.groups()
+        layer = f"layer{int(stage) - 1}"
+        mod = (_BRANCH_BN if is_bn else _BRANCH_CONV)[branch]
+        return (layer, str(int(block)), mod, _C2_LEAF[leaf]), layer == "layer4"
+    return None
+
+
+def convert_c2_blobs(blobs: dict) -> dict:
+    """Detectron blob dict → flax-shaped tree {"backbone": ..., "extractor":
+    {"head": ...}}: res5 (``layer4``) lands under the box head's extractor,
+    where the reference's suffix matching puts ImageNet's res5."""
+    tree: dict = {}
+    for name, arr in blobs.items():
+        hit = c2_blob_to_path(name)
+        if hit is None:
+            continue
+        path, is_res5 = hit
+        arr = np.asarray(arr)
+        if path[-1] == "kernel":
+            arr = conv_kernel(arr)
+        root = ("extractor", "head") if is_res5 else ("backbone",)
+        set_in_tree(tree, root + path, arr)
+    return tree
+
+
+class _BlobUnpickler(pickle.Unpickler):
+    """Unpickles numpy arrays in dicts and nothing else: a pickle names the
+    functions it calls, so one from elsewhere could run any code."""
+
+    _ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode"),
+                *((mod, fn) for mod in ("numpy.core.multiarray", "numpy._core.multiarray")
+                  for fn in ("_reconstruct", "scalar"))}
+
+    def find_class(self, module, name):
+        if (module, name) not in self._ALLOWED:
+            raise pickle.UnpicklingError(f"a Detectron pickle holds arrays only, not "
+                                         f"{module}.{name}")
+        return super().find_class(module, name)
+
+
+def load_c2_weights(path: str, model: torch.nn.Module, logger=None) -> torch.nn.Module:
+    """Load a Detectron ``.pkl`` (``{"blobs": {name: array}}`` or the blob
+    dict itself, Python 2 pickles included) into ``model``; returns the
+    model."""
+    with open(path, "rb") as f:
+        payload = _BlobUnpickler(f, encoding="latin1").load()
+    blobs = payload.get("blobs", payload) if isinstance(payload, dict) else payload
+    merge_state_dict(model, state_dict_from_flax(convert_c2_blobs(blobs)), logger)
     return model
