@@ -1258,7 +1258,6 @@ def run_eval_path(dev, cfg, base_cfg, frame_hw, lengths, portrait, lanes, smi, t
     ``write_result``; then ``base_cfg``'s detector through the serial
     engine over the first video. Returns (launches, launches per step,
     MEGA seconds a step, base launches)."""
-    import functools
     import tempfile
 
     import scipy.io as sio
@@ -1268,10 +1267,10 @@ def run_eval_path(dev, cfg, base_cfg, frame_hw, lengths, portrait, lanes, smi, t
     from mega_pytorch_tpu_torch.data.loader import EvalPreprocessor
     from mega_pytorch_tpu_torch.data.paths_catalog import dataset_args
     from mega_pytorch_tpu_torch.data.samplers import video_shards
-    from mega_pytorch_tpu_torch.engine import batched_inference as bi
     from mega_pytorch_tpu_torch.engine.inference import compute_on_dataset, evaluate_predictions
     from mega_pytorch_tpu_torch.models.detectors import build_detection_model
     from mega_pytorch_tpu_torch.tools.test_net import dataset_kwargs, video_starts, write_result
+    from mega_pytorch_tpu_torch.utils import profiler
 
     def sync():
         if dev.type == "cuda":
@@ -1315,23 +1314,22 @@ def run_eval_path(dev, cfg, base_cfg, frame_hw, lengths, portrait, lanes, smi, t
               f"in {time.perf_counter() - t0:.1f} s; {len(lengths)} videos "
               f"({int(np.sum(portrait))} portrait) of {min(lengths)}-{max(lengths)} frames, "
               f"{len(ds)} frames of {frame_hw[0]}x{frame_hw[1]}")
-        stats: dict = {}
-        lockstep = bi.compute_on_dataset_lockstep
-        bi.compute_on_dataset_lockstep = functools.partial(lockstep, stats=stats)
-        try:
+        # the host feed's spans: the producer's "feed" a lane batch, the
+        # step's "queue_wait" for it
+        with profiler.recording():
             step_ms, emitted, launches, per_step, wall, _, preds = run_lanes(
                 model, ds, lanes, dev, tag=tag,
                 run=lambda: compute_on_dataset(model, ds, indices, prep, "mega", lanes=lanes))
-        finally:
-            bi.compute_on_dataset_lockstep = lockstep
+        spans = profiler.recorded()["spans"]
         lane = _lane_stats(step_ms, emitted, lanes, len(ds), wall, smi, tag)
-        feed = statistics.median(stats["feed_s"]) * 1e3
-        wait = statistics.median(stats["wait_s"][5:]) * 1e3
-        print(f"[{tag}] host feed: the producer's median {feed:.2f} ms per {lanes}-lane batch "
+        feed = spans["feed"]["host_ms"] / spans["feed"]["calls"]
+        wait = spans["queue_wait"]["host_ms"] / spans["queue_wait"]["calls"]
+        print(f"[{tag}] host feed: the producer's mean {feed:.2f} ms per {lanes}-lane batch "
               f"({2 * lanes} frames) against the median step {lane['ms_per_step']:.2f} ms: "
-              f"share {feed / lane['ms_per_step']:.3f}; the step's median wait on the queue "
-              f"{wait:.2f} ms; the whole run {wall * 1e3 / len(step_ms):.2f} ms a step "
-              f"({len(step_ms)} steps, two canvas groups one after the other); {smi}")
+              f"share {feed / lane['ms_per_step']:.3f}; the step's mean wait on the queue "
+              f"{wait:.2f} ms over {spans['queue_wait']['calls']} waits; the whole run "
+              f"{wall * 1e3 / len(step_ms):.2f} ms a step ({len(step_ms)} steps, two canvas "
+              f"groups one after the other); {smi}")
         for i in indices:
             h, w = ds.get_img_info(i)["height"], ds.get_img_info(i)["width"]
             b = preds[i]["boxes"]
@@ -1564,11 +1562,10 @@ def run_training(smi, preset, dataset_name, iters, ckpt, per_iter, tag):
     launches of every iteration (``per_iter``), and a fresh model,
     optimizer and scheduler restored from the checkpoint equal to the live
     state there bit for bit. Returns (launches, launches per iteration)."""
-    import functools
     import tempfile
 
     import torch
-    from mega_pytorch_tpu_torch.data import loader, paths_catalog
+    from mega_pytorch_tpu_torch.data import paths_catalog
     from mega_pytorch_tpu_torch.data.datasets import vid
     from mega_pytorch_tpu_torch.data.paths_catalog import dataset_args
     from mega_pytorch_tpu_torch.engine import trainer
@@ -1582,14 +1579,14 @@ def run_training(smi, preset, dataset_name, iters, ckpt, per_iter, tag):
         calibrate_frozen_bn,
         calibration_frames,
     )
+    from mega_pytorch_tpu_torch.utils import profiler
     from mega_pytorch_tpu_torch.utils.checkpoint import Checkpointer
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(13)
     kernels = _kernels()
     rec: dict = dict(step_ms=[], launches=[])
-    step, batches_fn = trainer.train_step, loader.train_batches
-    stats: dict = {}
+    step = trainer.train_step
 
     def recording_step(model, optimizer, scheduler, *args, **kw):
         if not rec["step_ms"]:
@@ -1661,16 +1658,18 @@ def run_training(smi, preset, dataset_name, iters, ckpt, per_iter, tag):
 
         build, catalog = detectors.build_training_model, paths_catalog.build_dataset
         trainer.train_step = recording_step
-        loader.train_batches = functools.partial(batches_fn, stats=stats)
         detectors.build_training_model = calibrated
         paths_catalog.build_dataset = synthetic_dataset
         try:
             t0 = time.perf_counter()
-            record = train_net.main(args)
+            # the loader's "feed" span: each batch's reading and preprocessing
+            with profiler.recording():
+                record = train_net.main(args)
             wall = time.perf_counter() - t0
         finally:
-            trainer.train_step, loader.train_batches = step, batches_fn
+            trainer.train_step = step
             detectors.build_training_model, paths_catalog.build_dataset = build, catalog
+        feed_span = profiler.recorded()["spans"]["feed"]
         launches = {kern.__name__: kern.launches for kern in kernels}
         peak = torch.cuda.max_memory_allocated() / 2**20
 
@@ -1722,12 +1721,12 @@ def run_training(smi, preset, dataset_name, iters, ckpt, per_iter, tag):
     steady = rec["step_ms"][2:]
     ms = statistics.median(steady)
     loop_s = sum(record["iter_s"])
-    feed = statistics.median(stats["feed_s"]) * 1e3
+    feed = feed_span["host_ms"] / feed_span["calls"]
     frames = k * (1 + sum(_ref_groups(cfg).values()))
     print(f"[{tag}] iteration (synchronised, median of iterations 3..{n_iter}): {ms:.1f} ms; "
           f"first {rec['step_ms'][0]:.1f} ms; whole run {n_iter * k} samples in "
           f"{loop_s:.2f} s of the loop = {n_iter * k / loop_s:.3f} samples/s ({wall:.1f} s "
-          f"with set-up); producer {feed:.1f} ms an iteration ({frames} frames read and "
+          f"with set-up); producer mean {feed:.1f} ms an iteration ({frames} frames read and "
           f"preprocessed on one thread) against the {ms:.1f} ms iteration: share "
           f"{feed / ms:.3f}; peak memory {peak:.0f} MiB; {smi}")
     torch.cuda.empty_cache()

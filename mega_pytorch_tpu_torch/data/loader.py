@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from typing import Iterator
 
 import numpy as np
 
 from ..models.detectors.rcnn import pad_gt
+from ..utils.profiler import annotate
 from .transforms import preprocess_image, preprocess_image_u8, transform_boxes
 
 
@@ -125,16 +125,14 @@ def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
 
 
 def train_batches(dataset, preprocessor: TrainPreprocessor, index_batches: Iterator,
-                  prefetch_depth: int = 4, stats: dict | None = None) -> Iterator[list[dict]]:
+                  prefetch_depth: int = 4) -> Iterator[list[dict]]:
     """Lists of preprocessed samples, one per index of each batch, made in a
-    background thread. ``stats["feed_s"]``, where given, collects the
-    producer's seconds per batch (reading and preprocessing)."""
+    background thread, each batch's reading and preprocessing inside a
+    ``feed`` span (``utils/profiler.py``)."""
     def gen():
         for idxs in index_batches:
-            t0 = time.perf_counter()
-            batch = [preprocessor(dataset[i]) for i in idxs]
-            if stats is not None:
-                stats.setdefault("feed_s", []).append(time.perf_counter() - t0)
+            with annotate("feed", device=False):
+                batch = [preprocessor(dataset[i]) for i in idxs]
             yield batch
 
     return prefetch(gen(), prefetch_depth)

@@ -198,6 +198,28 @@ _S2D_BGR_PERM = {
 }
 
 
+_NORMALIZE_CONSTANTS: dict = {}
+
+
+def _normalize_constants(dev, mean: tuple, nc: int):
+    """(mean, and for s2d(f)-packed channels the BGR permutation and each
+    channel's row and column phase) on ``dev``, made once per device: a
+    tensor built from host values is a copy that waits for the card."""
+    key = (dev, mean, nc)
+    if key not in _NORMALIZE_CONSTANTS:
+        f = {12: 2, 48: 4}.get(nc)
+        perm = a = b = None
+        if f:
+            perm = torch.tensor(_S2D_BGR_PERM[f], device=dev)
+            a = torch.tensor([ch // (3 * f) for ch in range(nc)], dtype=torch.float32,
+                             device=dev)
+            b = torch.tensor([(ch // 3) % f for ch in range(nc)], dtype=torch.float32,
+                             device=dev)
+        mean_t = torch.tensor(mean, dtype=torch.float32, device=dev)
+        _NORMALIZE_CONSTANTS[key] = (mean_t, perm, a, b)
+    return _NORMALIZE_CONSTANTS[key]
+
+
 def normalize_u8_frames(frames: torch.Tensor, sizes: torch.Tensor,
                         pixel_mean=None) -> torch.Tensor:
     """uint8 RGB canvas → BGR255 mean-subtracted f32 with the padded region
@@ -205,10 +227,6 @@ def normalize_u8_frames(frames: torch.Tensor, sizes: torch.Tensor,
     f in {2, 4}, where the pad mask is evaluated per packed phase.
     sizes (..., 2) [oh, ow] on the same device."""
     dev = frames.device
-    mean = torch.as_tensor(
-        PIXEL_MEAN_BGR if pixel_mean is None else pixel_mean,
-        dtype=torch.float32, device=dev,
-    )
     h, w = frames.shape[-3], frames.shape[-2]
     lead = frames.shape[:-3]
     oh = sizes[..., 0:1].float()
@@ -216,14 +234,12 @@ def normalize_u8_frames(frames: torch.Tensor, sizes: torch.Tensor,
     iy = torch.arange(h, dtype=torch.float32, device=dev)
     ix = torch.arange(w, dtype=torch.float32, device=dev)
     nc = frames.shape[-1]
+    mean, perm, a, b = _normalize_constants(
+        dev, tuple(float(m) for m in (PIXEL_MEAN_BGR if pixel_mean is None else pixel_mean)),
+        nc)
     if nc in (12, 48):
         f = 2 if nc == 12 else 4
-        perm = torch.tensor(_S2D_BGR_PERM[f], device=dev)
         x = frames[..., perm].float() - mean.repeat(f * f)
-        a = torch.tensor([ch // (3 * f) for ch in range(nc)], dtype=torch.float32,
-                         device=dev)
-        b = torch.tensor([(ch // 3) % f for ch in range(nc)], dtype=torch.float32,
-                         device=dev)
         mask_y = (f * iy[None, :, None] + a[None, None, :]) < oh[..., None]
         mask_x = (f * ix[None, :, None] + b[None, None, :]) < ow[..., None]
         mask = mask_y.reshape(*lead, h, 1, nc) & mask_x.reshape(*lead, 1, w, nc)

@@ -47,6 +47,7 @@ import torch
 
 from ..data.transforms import normalize_u8_frames, s2d_pack_frames
 from ..models.roi_heads.inference import Detections
+from ..utils.profiler import annotate
 from .inference import _extract
 
 
@@ -74,19 +75,22 @@ def make_lockstep_step(model) -> Callable:
 
     @torch.inference_mode()
     def step(carries, frames, sizes, gframes, gsizes, resets, gmasks, emits):
-        # local and global frames are stacked before normalization, so the
-        # pair reaches the one backbone pass without a copy
-        both_sizes = torch.stack([sizes, gsizes], 1).float()  # (L, 2, 2)
-        both = normalize_u8_frames(torch.stack([frames, gframes], 1), both_sizes)
-        entry, g_pooled, g_valid = model.precompute_pair(both, both_sizes)
-        cur = both_sizes[:, 0]
-        carry = _select(resets, model.init_carry(entry, cur),
-                        model.push_carry(carries, entry, cur))
-        carry = _select(gmasks, model.apply_global(carry, g_pooled, g_valid), carry)
-        new_carry, dets = model.detect_key(carry)
-        # detect_key pushes the long-range memory; only an emitted frame
-        # (not a warm-up step) keeps those pushes, as in the serial engine
-        return _select(emits, new_carry, carry), dets
+        with annotate("lockstep_step"):
+            # local and global frames are stacked before normalization, so
+            # the pair reaches the one backbone pass without a copy
+            both_sizes = torch.stack([sizes, gsizes], 1).float()  # (L, 2, 2)
+            both = normalize_u8_frames(torch.stack([frames, gframes], 1), both_sizes)
+            entry, g_pooled, g_valid = model.precompute_pair(both, both_sizes)
+            cur = both_sizes[:, 0]
+            with annotate("carry"):
+                carry = _select(resets, model.init_carry(entry, cur),
+                                model.push_carry(carries, entry, cur))
+                carry = _select(gmasks, model.apply_global(carry, g_pooled, g_valid), carry)
+            new_carry, dets = model.detect_key(carry)
+            # detect_key pushes the long-range memory; only an emitted frame
+            # (not a warm-up step) keeps those pushes, as in the serial engine
+            with annotate("carry"):
+                return _select(emits, new_carry, carry), dets
 
     return step
 
@@ -103,12 +107,14 @@ def make_lockstep_step_windowed(model) -> Callable:
 
     @torch.inference_mode()
     def step(carries, frames, sizes, resets):
-        sizes = sizes.float()
-        entry = model.precompute(normalize_u8_frames(frames, sizes), sizes)
-        carry = model.init_carry(entry, sizes)
-        if carries is not None:
-            carry = _select(resets, carry, model.push_carry(carries, entry, sizes))
-        return carry, model.detect_key(carry)
+        with annotate("lockstep_step"):
+            sizes = sizes.float()
+            entry = model.precompute(normalize_u8_frames(frames, sizes), sizes)
+            with annotate("carry"):
+                carry = model.init_carry(entry, sizes)
+                if carries is not None:
+                    carry = _select(resets, carry, model.push_carry(carries, entry, sizes))
+            return carry, model.detect_key(carry)
 
     return step
 
@@ -125,16 +131,18 @@ def make_lockstep_steps_dff(model) -> tuple[Callable, Callable]:
 
     @torch.inference_mode()
     def key_step(carries, frames, sizes):
-        sizes = sizes.float()
-        images = normalize_u8_frames(frames, sizes)
-        carry = model.make_key(images, sizes)
-        return carry, model.detect_key(carry, images, sizes)
+        with annotate("lockstep_step"):
+            sizes = sizes.float()
+            images = normalize_u8_frames(frames, sizes)
+            carry = model.make_key(images, sizes)
+            return carry, model.detect_key(carry, images, sizes)
 
     @torch.inference_mode()
     def nonkey_step(carries, frames, sizes):
-        sizes = sizes.float()
-        images = normalize_u8_frames(frames, sizes)
-        return carries, model.detect_non_key(carries, images, sizes)
+        with annotate("lockstep_step"):
+            sizes = sizes.float()
+            images = normalize_u8_frames(frames, sizes)
+            return carries, model.detect_non_key(carries, images, sizes)
 
     return key_step, nonkey_step
 
@@ -325,15 +333,15 @@ _FEED_KEYS = {
 
 def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
                                 lanes: int = 4, logger=None, log_period: int = 50,
-                                prefetch_depth: int = 8, stats: dict | None = None) -> dict:
+                                prefetch_depth: int = 8) -> dict:
     """Lockstep multi-lane streaming over whole videos → {idx: prediction}
     in original image coordinates. Dispatches on ``model.v.method``: mega
     (window, memory and global cache), rdn and fgfa (window only), dff
     (phase-aligned key and non-key steps).
 
-    ``stats``, where given, receives the host feed's timing: ``feed_s``, the
-    producer's seconds per lane batch (decode, preprocess, pack, pin), and
-    ``wait_s``, the seconds each step waited on the queue for its batch."""
+    The host feed opens two spans (``utils/profiler.py``): ``feed``, the
+    producer's work on each lane batch (decode, preprocess, pack, pin), and
+    ``queue_wait``, each step's wait on the queue for its batch."""
     method = model.v.method
     if method not in _FEED_KEYS:
         raise NotImplementedError(f"lockstep {method!r} is not ported")
@@ -355,9 +363,6 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
         step = (make_lockstep_step if method == "mega"
                 else make_lockstep_step_windowed)(model)
     keys = _FEED_KEYS[method]
-    if stats is None:
-        stats = {}
-    stats.update(feed_s=[], wait_s=[])
     results: dict = {}
     t0 = time.time()
     done = 0
@@ -374,7 +379,7 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
         with ThreadPoolExecutor(max_workers=min(16, 2 * len(bins))) as pool:
             producer = threading.Thread(
                 target=_produce,
-                args=(pool, feeds, keys, max_steps, dev, batches, stop, stats["feed_s"]),
+                args=(pool, feeds, keys, max_steps, dev, batches, stop),
                 daemon=True)
             producer.start()
             try:
@@ -382,9 +387,8 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
                 carries = model.zero_carry(len(bins), dev) if method == "mega" else None
                 s = 0
                 while True:
-                    t_wait = time.perf_counter()
-                    batch = batches.get()
-                    stats["wait_s"].append(time.perf_counter() - t_wait)
+                    with annotate("queue_wait", device=False):
+                        batch = batches.get()
                     if batch is None:
                         break
                     if isinstance(batch, BaseException):
@@ -426,12 +430,12 @@ def compute_on_dataset_lockstep(model, dataset, indices, preprocessor,
 
 
 def _produce(pool, feeds, keys, steps: int, dev, batches: queue.Queue,
-             stop: threading.Event, feed_s: list) -> None:
+             stop: threading.Event) -> None:
     """Producer thread: ``steps`` lane batches, then None; an exception is
     put on the queue for the consumer to raise. Each batch stacks the lanes'
-    items under ``keys`` (item "frame" as batch "frames", ...); the seconds
-    each batch took are appended to ``feed_s``. Returns early once ``stop``
-    is set (the consumer stopped)."""
+    items under ``keys`` (item "frame" as batch "frames", ...) inside a
+    ``feed`` span. Returns early once ``stop`` is set (the consumer
+    stopped)."""
     pin = dev.type == "cuda"
 
     def host(a):
@@ -442,15 +446,14 @@ def _produce(pool, feeds, keys, steps: int, dev, batches: queue.Queue,
         for _ in range(steps):
             if stop.is_set():
                 return
-            t0 = time.perf_counter()
-            items = list(pool.map(next, feeds))
-            batch = {k + "s": host(np.stack([it[k] for it in items])) for k in keys}
-            batch.update(
-                emit_mask=host(np.array([it["emit"] is not None for it in items])),
-                emits=[it["emit"] for it in items],
-                origs=[it["orig_hw"] for it in items],
-            )
-            feed_s.append(time.perf_counter() - t0)
+            with annotate("feed", device=False):
+                items = list(pool.map(next, feeds))
+                batch = {k + "s": host(np.stack([it[k] for it in items])) for k in keys}
+                batch.update(
+                    emit_mask=host(np.array([it["emit"] is not None for it in items])),
+                    emits=[it["emit"] for it in items],
+                    origs=[it["orig_hw"] for it in items],
+                )
             batches.put(batch)
         batches.put(None)
     except Exception as exc:  # handed to the consumer, which raises it

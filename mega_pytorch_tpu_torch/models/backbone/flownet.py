@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiler import annotate
 from ..layers import Conv, ConvTranspose, leaky_relu
 from .resnet import nchw, nhwc
 
@@ -70,22 +71,23 @@ class FlowNetS(nn.Module):
     def forward(self, x: torch.Tensor):
         """x (B, H, W, 6), two frames in [0, 1] → flow (B, H/16, W/16, 2)
         (and, for "dff", the scale map (B, H/16, W/16, 1024)), NHWC."""
-        y = _avgpool2_ceil(nchw(x))
-        skips = {}
-        for name, *_ in _ENCODER:
-            y = leaky_relu(getattr(self, name)(y))
-            skips[name] = y
-        for flow_conv, _, up, deconv, _, skip in _DECODER:
-            target = skips[skip]
-            flow = getattr(self, flow_conv)(y)
-            up_flow = _crop_like(getattr(self, up)(flow), target)
-            d = leaky_relu(_crop_like(getattr(self, deconv)(y), target))
-            y = torch.cat([target, d, up_flow], 1)
-        y = _avgpool2_ceil(y)
-        flow = nhwc(self.Convolution5(y) * 2.5)
-        if self.method == "dff":
-            return flow, nhwc(self.Convolution5_scale(y) + 1.0)
-        return flow
+        with annotate("flownet"):
+            y = _avgpool2_ceil(nchw(x))
+            skips = {}
+            for name, *_ in _ENCODER:
+                y = leaky_relu(getattr(self, name)(y))
+                skips[name] = y
+            for flow_conv, _, up, deconv, _, skip in _DECODER:
+                target = skips[skip]
+                flow = getattr(self, flow_conv)(y)
+                up_flow = _crop_like(getattr(self, up)(flow), target)
+                d = leaky_relu(_crop_like(getattr(self, deconv)(y), target))
+                y = torch.cat([target, d, up_flow], 1)
+            y = _avgpool2_ceil(y)
+            flow = nhwc(self.Convolution5(y) * 2.5)
+            if self.method == "dff":
+                return flow, nhwc(self.Convolution5_scale(y) + 1.0)
+            return flow
 
 
 class EmbedNet(nn.Module):

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.kernels.stem_pool import stem_pool_packed
+from ...utils.profiler import annotate
 from ..layers import DTYPES, Conv, FrozenBatchNorm2d, GroupNorm, lecun_normal_
 
 STAGE_SPECS = {
@@ -234,9 +235,10 @@ class ResNetC4(nn.Module):
             in_ch = out_ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.stem(x)
-        y = self.layer3(self.layer2(self.layer1(y)))
-        return nhwc(y)
+        with annotate("backbone"):
+            y = self.stem(x)
+            y = self.layer3(self.layer2(self.layer1(y)))
+            return nhwc(y)
 
     def freeze_(self, freeze_at: int) -> None:
         """Training: the stem (``freeze_at`` >= 1) and each ``layer{i}`` with
@@ -262,7 +264,8 @@ class ResNetRes5Head(nn.Module):
                                   device, num_groups, norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nhwc(self.layer4(nchw(x)))
+        with annotate("res5"):
+            return nhwc(self.layer4(nchw(x)))
 
 
 def depth_of(cfg) -> str:

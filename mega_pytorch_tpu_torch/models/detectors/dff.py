@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ...ops.warp import warp_by_flow
+from ...utils.profiler import annotate
 from ..backbone.flownet import FlowNetS
 from ..roi_heads.inference import Detections
 from .rcnn import GeneralizedRCNN, RCNNConfig
@@ -73,4 +74,5 @@ class GeneralizedRCNNDFF(GeneralizedRCNN):
     def detect_key(self, carry: DFFCarry, images, sizes) -> Detections:
         """A key frame still warps: the flow from a frame to itself is near
         zero, not zero, as the reference computes it unconditionally."""
-        return self.detect_non_key(carry, images, sizes)
+        with annotate("detect_key"):
+            return self.detect_non_key(carry, images, sizes)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ...ops.warp import warp_by_flow
+from ...utils.profiler import annotate
 from ..backbone.flownet import EmbedNet
 from ..roi_heads.inference import Detections
 from .dff import GeneralizedRCNNDFF
@@ -70,9 +71,10 @@ class GeneralizedRCNNFGFA(GeneralizedRCNNDFF):
     def precompute(self, images: torch.Tensor, sizes: torch.Tensor):
         """Normalized frames (L, H, W, 3) → window entries (image, [map ;
         embedding])."""
-        feats = self.backbone(images)
-        embeds = self.embednet(feats).float()
-        return images, torch.cat([feats.float(), embeds], -1)
+        with annotate("precompute"):
+            feats = self.backbone(images)
+            embeds = self.embednet(feats).float()
+            return images, torch.cat([feats.float(), embeds], -1)
 
     def init_carry(self, entry, size: torch.Tensor) -> FGFACarry:
         """Fresh carries whose window holds each lane's entry in every slot
@@ -93,15 +95,16 @@ class GeneralizedRCNNFGFA(GeneralizedRCNNDFF):
 
     def detect_key(self, carry: FGFACarry) -> Detections:
         """Detect at every lane's key slot → Detections (L, ...)."""
-        lanes, t = carry.images.shape[:2]
-        k = self.v.key_frame_location
-        cur = carry.images[:, k:k + 1].expand_as(carry.images)
-        flow = self.flow(cur.flatten(0, 1), carry.images.flatten(0, 1))
-        warped = warp_by_flow(carry.features.flatten(0, 1), flow).unflatten(0, (lanes, t))
-        feats, embeds = warped[..., :1024], warped[..., 1024:]
-        weights = torch.softmax(cosine_weights(embeds, embeds[:, k:k + 1]), dim=1)
-        agg = (weights * feats).sum(1)
-        return self.detect_heads(agg, carry.sizes[:, k])
+        with annotate("detect_key"):
+            lanes, t = carry.images.shape[:2]
+            k = self.v.key_frame_location
+            cur = carry.images[:, k:k + 1].expand_as(carry.images)
+            flow = self.flow(cur.flatten(0, 1), carry.images.flatten(0, 1))
+            warped = warp_by_flow(carry.features.flatten(0, 1), flow).unflatten(0, (lanes, t))
+            feats, embeds = warped[..., :1024], warped[..., 1024:]
+            weights = torch.softmax(cosine_weights(embeds, embeds[:, k:k + 1]), dim=1)
+            agg = (weights * feats).sum(1)
+            return self.detect_heads(agg, carry.sizes[:, k])
 
     def test_step(self, carry: FGFACarry, images: torch.Tensor, sizes: torch.Tensor):
         carry = self.push_carry(carry, self.precompute(images, sizes), sizes)

@@ -25,6 +25,7 @@ import torch
 from ..roi_heads.mega_extractor import MEGAFeatureExtractor, RefSet
 from ..rpn.rpn import rpn_postprocess
 from .rcnn import RCNNConfig, seeded_flagship
+from ...utils.profiler import annotate
 from .rdn import VidConfig, WindowedRCNN, push
 
 __all__ = ["GeneralizedRCNNMEGA", "MEGACarry", "RCNNConfig", "VidConfig",
@@ -87,20 +88,21 @@ class GeneralizedRCNNMEGA(WindowedRCNN):
         """Stacked normalized pairs (L, 2, H, W, C) — [:, 0] local, [:, 1]
         global — with sizes (L, 2, 2) through ONE backbone/RPN/res5 pass over
         the 2L frames → (entry, g_pooled (L, 75, D), g_valid (L, 75))."""
-        lanes = images.shape[0]
-        feats = self.backbone(images.flatten(0, 1))  # (2L, H', W', 1024)
-        objectness, deltas = self.rpn(feats)
-        anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
-        enhanced = self.extractor.enhance_features(feats).unflatten(0, (lanes, 2))
-        objectness = objectness.unflatten(0, (lanes, 2))
-        deltas = deltas.unflatten(0, (lanes, 2))
-        entry = self._entry(enhanced[:, 0], objectness[:, 0], deltas[:, 0], anchors,
-                            sizes[:, 0])
-        g_props = rpn_postprocess(objectness[:, 1], deltas[:, 1], anchors, sizes[:, 1],
-                                  self._ref_sizes())
-        ext = self.extractor
-        g_pooled = ext.fc0(ext.pool_flat(enhanced[:, 1], g_props.boxes))
-        return entry, g_pooled, g_props.valid
+        with annotate("precompute"):
+            lanes = images.shape[0]
+            feats = self.backbone(images.flatten(0, 1))  # (2L, H', W', 1024)
+            objectness, deltas = self.rpn(feats)
+            anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
+            enhanced = self.extractor.enhance_features(feats).unflatten(0, (lanes, 2))
+            objectness = objectness.unflatten(0, (lanes, 2))
+            deltas = deltas.unflatten(0, (lanes, 2))
+            entry = self._entry(enhanced[:, 0], objectness[:, 0], deltas[:, 0], anchors,
+                                sizes[:, 0])
+            g_props = rpn_postprocess(objectness[:, 1], deltas[:, 1], anchors, sizes[:, 1],
+                                      self._ref_sizes())
+            ext = self.extractor
+            g_pooled = ext.fc0(ext.pool_flat(enhanced[:, 1], g_props.boxes))
+            return entry, g_pooled, g_props.valid
 
     def apply_global(self, carry: MEGACarry, pooled, valid) -> MEGACarry:
         return carry._replace(g_feats=push(carry.g_feats, pooled),
@@ -113,28 +115,31 @@ class GeneralizedRCNNMEGA(WindowedRCNN):
     def detect_key(self, carry: MEGACarry):
         """Detect at every lane's key slot → (carry with the LRM pushes,
         Detections (L, ...))."""
-        v = self.v
-        k = v.key_frame_location
-        key_rois, key_valid = carry.key_rois[:, k], carry.key_valid[:, k]
+        with annotate("detect_key"):
+            v = self.v
+            k = v.key_frame_location
+            key_rois, key_valid = carry.key_rois[:, k], carry.key_valid[:, k]
 
-        def refs(rois, feats, valid):
-            return RefSet(rois.flatten(1, 2), feats.flatten(1, 2), valid.flatten(1, 2))
+            def refs(rois, feats, valid):
+                return RefSet(rois.flatten(1, 2), feats.flatten(1, 2), valid.flatten(1, 2))
 
-        window = refs(carry.rois, carry.feats, carry.roi_valid)
-        lrm = tuple(refs(carry.mem_rois[i], carry.mem_feats[i], carry.mem_valid[i])
-                    for i in range(v.base_stage))
-        x, pushes = self.extractor.extract_test(
-            carry.key_feats[:, k], key_rois, window, lrm,
-            carry.g_feats.flatten(1, 2), carry.g_valid.flatten(1, 2),
-        )
-        carry = carry._replace(
-            mem_rois=tuple(push(carry.mem_rois[i], p.rois) for i, p in enumerate(pushes)),
-            mem_feats=tuple(push(carry.mem_feats[i], p.feats) for i, p in enumerate(pushes)),
-            mem_valid=tuple(push(carry.mem_valid[i], p.valid) for i, p in enumerate(pushes)),
-        )
-        class_logits, box_reg = self.predictor(x)
-        return carry, self._postprocess(class_logits, box_reg, key_rois, key_valid,
-                                        carry.sizes[:, k])
+            window = refs(carry.rois, carry.feats, carry.roi_valid)
+            lrm = tuple(refs(carry.mem_rois[i], carry.mem_feats[i], carry.mem_valid[i])
+                        for i in range(v.base_stage))
+            x, pushes = self.extractor.extract_test(
+                carry.key_feats[:, k], key_rois, window, lrm,
+                carry.g_feats.flatten(1, 2), carry.g_valid.flatten(1, 2),
+            )
+            carry = carry._replace(
+                mem_rois=tuple(push(carry.mem_rois[i], p.rois) for i, p in enumerate(pushes)),
+                mem_feats=tuple(push(carry.mem_feats[i], p.feats)
+                                for i, p in enumerate(pushes)),
+                mem_valid=tuple(push(carry.mem_valid[i], p.valid)
+                                for i, p in enumerate(pushes)),
+            )
+            class_logits, box_reg = self.predictor(x)
+            return carry, self._postprocess(class_logits, box_reg, key_rois, key_valid,
+                                            carry.sizes[:, k])
 
     # -- training -------------------------------------------------------------
     def forward_train(self, batch: dict, gt: dict,

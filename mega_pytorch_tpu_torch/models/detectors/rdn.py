@@ -22,6 +22,7 @@ import torch
 
 from ..roi_heads.inference import Detections
 from ..roi_heads.vid_extractors import RDNFeatureExtractor
+from ...utils.profiler import annotate
 from ..rpn.rpn import rpn_postprocess, shared_ref_key_postprocess
 from .rcnn import RCNNBase, RCNNConfig
 
@@ -127,11 +128,12 @@ class WindowedRCNN(RCNNBase):
 
     def precompute(self, images: torch.Tensor, sizes: torch.Tensor) -> dict:
         """Normalized frames (L, H, W, C), one per lane → their window entries."""
-        feats = self.backbone(images)
-        objectness, deltas = self.rpn(feats)
-        anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
-        enhanced = self.extractor.enhance_features(feats)
-        return self._entry(enhanced, objectness, deltas, anchors, sizes)
+        with annotate("precompute"):
+            feats = self.backbone(images)
+            objectness, deltas = self.rpn(feats)
+            anchors = self._anchors(feats.shape[1], feats.shape[2], feats.device)
+            enhanced = self.extractor.enhance_features(feats)
+            return self._entry(enhanced, objectness, deltas, anchors, sizes)
 
     def _shapes(self) -> dict:
         """Per-lane (shape, dtype) of every carry field."""
@@ -201,14 +203,15 @@ class GeneralizedRCNNRDN(WindowedRCNN):
     def detect_key(self, carry: RDNCarry) -> Detections:
         """Detect at every lane's key slot over all the window's refs →
         Detections (L, ...)."""
-        k = self.v.key_frame_location
-        key_rois, key_valid = carry.key_rois[:, k], carry.key_valid[:, k]
-        x = self.extractor.extract_test(
-            carry.key_feats[:, k], key_rois, carry.rois.flatten(1, 2),
-            carry.roi_valid.flatten(1, 2), carry.feats.flatten(1, 2))
-        class_logits, box_reg = self.predictor(x)
-        return self._postprocess(class_logits, box_reg, key_rois, key_valid,
-                                 carry.sizes[:, k])
+        with annotate("detect_key"):
+            k = self.v.key_frame_location
+            key_rois, key_valid = carry.key_rois[:, k], carry.key_valid[:, k]
+            x = self.extractor.extract_test(
+                carry.key_feats[:, k], key_rois, carry.rois.flatten(1, 2),
+                carry.roi_valid.flatten(1, 2), carry.feats.flatten(1, 2))
+            class_logits, box_reg = self.predictor(x)
+            return self._postprocess(class_logits, box_reg, key_rois, key_valid,
+                                     carry.sizes[:, k])
 
     def test_step(self, carry: RDNCarry, images: torch.Tensor, sizes: torch.Tensor):
         """Steady state: push each lane's frame, detect at the key slot."""

@@ -17,6 +17,7 @@ from ...ops.box_coder import BoxCoder
 from ...ops.losses import smooth_l1_loss
 from ...ops.nms import nms
 from ...structures.boxes import Boxes, box_iou, clip_to_image, small_box_mask
+from ...utils.profiler import annotate
 from ..backbone.resnet import nchw, nhwc
 from ..layers import Conv
 from ..matcher import BELOW_LOW_THRESHOLD, BETWEEN_THRESHOLDS, match
@@ -56,21 +57,22 @@ class RPNSizes(NamedTuple):
 def rpn_postprocess(objectness, box_deltas, anchors, im_sizes, sizes: RPNSizes) -> Boxes:
     """(B, N) logits, (B, N, 4) deltas, (N, 4) anchors, (B, 2) sizes →
     Boxes with (B, post_nms_top_n, ...) tensors and an "objectness" field."""
-    n = objectness.shape[1]
-    scores = torch.sigmoid(objectness)
-    k = min(sizes.pre_nms_top_n, n)
-    # stable descending sort: ties resolve low index first, as lax.top_k does
-    top_scores, top_idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-    decoded = RPN_BOX_CODER.decode(box_deltas, anchors[None].expand_as(box_deltas))
-    proposals = torch.gather(decoded, 1, top_idx[..., None].expand(-1, -1, 4))
-    proposals = clip_to_image(proposals, im_sizes[:, 0:1], im_sizes[:, 1:2])
-    valid = small_box_mask(proposals, sizes.min_size)
-    _, keep_valid, (kept_boxes, kept_scores) = nms(
-        proposals, top_scores, valid, sizes.nms_thresh, sizes.post_nms_top_n,
-        extras=(top_scores,), return_boxes=True, presorted=True,
-    )
-    return Boxes(kept_boxes, keep_valid, {"objectness": kept_scores})
+    with annotate("rpn_postprocess"):
+        n = objectness.shape[1]
+        scores = torch.sigmoid(objectness)
+        k = min(sizes.pre_nms_top_n, n)
+        # stable descending sort: ties resolve low index first, as lax.top_k does
+        top_scores, top_idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+        decoded = RPN_BOX_CODER.decode(box_deltas, anchors[None].expand_as(box_deltas))
+        proposals = torch.gather(decoded, 1, top_idx[..., None].expand(-1, -1, 4))
+        proposals = clip_to_image(proposals, im_sizes[:, 0:1], im_sizes[:, 1:2])
+        valid = small_box_mask(proposals, sizes.min_size)
+        _, keep_valid, (kept_boxes, kept_scores) = nms(
+            proposals, top_scores, valid, sizes.nms_thresh, sizes.post_nms_top_n,
+            extras=(top_scores,), return_boxes=True, presorted=True,
+        )
+        return Boxes(kept_boxes, keep_valid, {"objectness": kept_scores})
 
 
 def shared_ref_key_postprocess(objectness, box_deltas, anchors, im_sizes,

@@ -13,14 +13,31 @@ the threshold. Two layers, as in the JAX package:
 
 Every function takes a leading batch dimension (images or classes). Each
 peel round and each chunk step asks the host whether work remains, which
-costs one device synchronisation per round.
+costs one device synchronisation per round; the counter ``nms.rounds``
+counts these rounds and, while spans record, ``host_wait`` the host ms
+spent waiting in them (``utils/profiler.py``).
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from ..utils import profiler
+
 NEG_INF = -1e30
+
+
+def _any_on_host(x: torch.Tensor) -> bool:
+    """Whether ``x`` holds a True: one host round (a device synchronisation)."""
+    if not profiler.enabled():
+        return bool(x.any())
+    t0 = time.perf_counter()
+    out = bool(x.any())
+    profiler.count("host_wait", (time.perf_counter() - t0) * 1e3)
+    profiler.count("nms.rounds")
+    return out
 
 
 def _pair_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -44,7 +61,7 @@ def _peel(bb: torch.Tensor, vv: torch.Tensor, iou_threshold: float) -> torch.Ten
     overlap = (_pair_iou(bb, bb) > iou_threshold) & (rank[:, None] < rank[None, :])
     kept = torch.zeros_like(vv)
     undecided = vv.clone()
-    while bool(undecided.any()):
+    while _any_on_host(undecided):
         blocked = (undecided[:, :, None] & overlap).any(dim=1)
         safe = undecided & ~blocked
         removed = (safe[:, :, None] & overlap).any(dim=1)
@@ -72,7 +89,7 @@ def _chunked_keep_mask(b, v, iou_threshold, max_outputs, chunk):
     rows = torch.arange(bsz, device=b.device)[:, None]
     for t in range(n_chunks):
         active = (kept_n < k) & has_valid_from[:, t]
-        if not bool(active.any()):
+        if not _any_on_host(active):
             break
         cb = b[:, t * chunk:(t + 1) * chunk]
         cv = v[:, t * chunk:(t + 1) * chunk] & active[:, None]
@@ -107,48 +124,49 @@ def nms(boxes, scores, valid, iou_threshold: float, max_outputs: int,
     the kept boxes hold the next non-kept candidates in rank order; slots past
     N (when N < max_outputs) hold zeros and index 0.
     """
-    bsz, n = scores.shape
-    dev = boxes.device
-    if presorted:
-        order = torch.arange(n, device=dev).expand(bsz, n)
-    else:
-        masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-        order = torch.sort(masked, dim=-1, stable=True).indices.flip(-1)
+    with profiler.annotate("nms"):
+        bsz, n = scores.shape
+        dev = boxes.device
+        if presorted:
+            order = torch.arange(n, device=dev).expand(bsz, n)
+        else:
+            masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+            order = torch.sort(masked, dim=-1, stable=True).indices.flip(-1)
 
-    def take(x, idx):
-        return torch.gather(x, 1, idx if x.dim() == 2 else
-                            idx[..., None].expand(*idx.shape, x.shape[-1]))
+        def take(x, idx):
+            return torch.gather(x, 1, idx if x.dim() == 2 else
+                                idx[..., None].expand(*idx.shape, x.shape[-1]))
 
-    v = take(valid, order)
-    b = take(boxes, order)
-    if n <= max(chunk, 2 * max_outputs):
-        kept = _peel(b, v, iou_threshold)
-    else:
-        kept = _chunked_keep_mask(b, v, iou_threshold, max_outputs, chunk)
+        v = take(valid, order)
+        b = take(boxes, order)
+        if n <= max(chunk, 2 * max_outputs):
+            kept = _peel(b, v, iou_threshold)
+        else:
+            kept = _chunked_keep_mask(b, v, iou_threshold, max_outputs, chunk)
 
-    # first max_outputs kept boxes in rank order, then the others in rank order
-    rank = torch.arange(n, device=dev)
-    pick = torch.where(kept, n - rank, torch.zeros_like(rank))
-    slots = torch.sort(-pick, dim=-1, stable=True).indices
-    k = min(max_outputs, n)
-    slots = slots[:, :k]
-    keep_valid = torch.gather(kept, 1, slots)
-    keep_idx = torch.gather(order, 1, slots)
-    kept_out = []
-    if return_boxes:
-        kept_out.append(take(boxes, keep_idx))
-    kept_out.extend(take(e, keep_idx) for e in extras)
-    if k < max_outputs:
-        pad = max_outputs - k
+        # first max_outputs kept boxes in rank order, then the others in rank order
+        rank = torch.arange(n, device=dev)
+        pick = torch.where(kept, n - rank, torch.zeros_like(rank))
+        slots = torch.sort(-pick, dim=-1, stable=True).indices
+        k = min(max_outputs, n)
+        slots = slots[:, :k]
+        keep_valid = torch.gather(kept, 1, slots)
+        keep_idx = torch.gather(order, 1, slots)
+        kept_out = []
+        if return_boxes:
+            kept_out.append(take(boxes, keep_idx))
+        kept_out.extend(take(e, keep_idx) for e in extras)
+        if k < max_outputs:
+            pad = max_outputs - k
 
-        def padded(x):
-            return torch.cat([x, x.new_zeros((bsz, pad, *x.shape[2:]))], 1)
+            def padded(x):
+                return torch.cat([x, x.new_zeros((bsz, pad, *x.shape[2:]))], 1)
 
-        keep_idx, keep_valid = padded(keep_idx), padded(keep_valid)
-        kept_out = [padded(x) for x in kept_out]
-    if not extras and not return_boxes:
-        return keep_idx, keep_valid
-    return keep_idx, keep_valid, tuple(kept_out)
+            keep_idx, keep_valid = padded(keep_idx), padded(keep_valid)
+            kept_out = [padded(x) for x in kept_out]
+        if not extras and not return_boxes:
+            return keep_idx, keep_valid
+        return keep_idx, keep_valid, tuple(kept_out)
 
 
 def batched_nms(boxes, scores, valid, iou_threshold: float, max_outputs: int):

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiler import annotate
+
 MAX_INTERMEDIATE = 1 << 27  # f32 elements (512 MB) of the first contraction
 
 
@@ -54,36 +56,37 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
               sampling_ratio: int = 0, max_grid: int = 10) -> torch.Tensor:
     """features (L, H, W, C), one map per lane; rois (L, R, 4) xyxy in image
     coordinates → (L, R, pooled_height, pooled_width, C) f32."""
-    lanes, h, w, c = features.shape
-    r = rois.shape[1]
-    rois = rois.float().reshape(lanes * r, 4)
-    x1 = rois[:, 0] * spatial_scale
-    y1 = rois[:, 1] * spatial_scale
-    x2 = rois[:, 2] * spatial_scale
-    y2 = rois[:, 3] * spatial_scale
-    roi_w = (x2 - x1).clamp_min(1.0)
-    roi_h = (y2 - y1).clamp_min(1.0)
-    if sampling_ratio > 0:
-        gh = torch.full(rois.shape[:1], sampling_ratio, dtype=torch.int32,
-                        device=rois.device)
-        gw = gh
-        max_grid = sampling_ratio
-    else:
-        gh = torch.ceil(roi_h / pooled_height).int().clamp(1, max_grid)
-        gw = torch.ceil(roi_w / pooled_width).int().clamp(1, max_grid)
-    wy = _axis_weights(y1, roi_h, pooled_height, gh, h, max_grid)  # (L*R, PH, H)
-    wx = _axis_weights(x1, roi_w, pooled_width, gw, w, max_grid)  # (L*R, PW, W)
-    wy = wy.reshape(lanes, r, pooled_height, h)
-    wx = wx.reshape(lanes, r, pooled_width, w)
-    feat = features.float()
-    out = torch.empty((lanes, r, pooled_height, pooled_width, c),
-                      dtype=torch.float32, device=features.device)
-    chunk = max(1, MAX_INTERMEDIATE // max(1, r * pooled_height * w * c))
-    for l0 in range(0, lanes, chunk):
-        sl = slice(l0, l0 + chunk)
-        tmp = torch.einsum("lrph,lhwc->lrpwc", wy[sl], feat[sl])
-        out[sl] = torch.einsum("lrqw,lrpwc->lrpqc", wx[sl], tmp)
-    return out
+    with annotate("roi_align"):
+        lanes, h, w, c = features.shape
+        r = rois.shape[1]
+        rois = rois.float().reshape(lanes * r, 4)
+        x1 = rois[:, 0] * spatial_scale
+        y1 = rois[:, 1] * spatial_scale
+        x2 = rois[:, 2] * spatial_scale
+        y2 = rois[:, 3] * spatial_scale
+        roi_w = (x2 - x1).clamp_min(1.0)
+        roi_h = (y2 - y1).clamp_min(1.0)
+        if sampling_ratio > 0:
+            gh = torch.full(rois.shape[:1], sampling_ratio, dtype=torch.int32,
+                            device=rois.device)
+            gw = gh
+            max_grid = sampling_ratio
+        else:
+            gh = torch.ceil(roi_h / pooled_height).int().clamp(1, max_grid)
+            gw = torch.ceil(roi_w / pooled_width).int().clamp(1, max_grid)
+        wy = _axis_weights(y1, roi_h, pooled_height, gh, h, max_grid)  # (L*R, PH, H)
+        wx = _axis_weights(x1, roi_w, pooled_width, gw, w, max_grid)  # (L*R, PW, W)
+        wy = wy.reshape(lanes, r, pooled_height, h)
+        wx = wx.reshape(lanes, r, pooled_width, w)
+        feat = features.float()
+        out = torch.empty((lanes, r, pooled_height, pooled_width, c),
+                          dtype=torch.float32, device=features.device)
+        chunk = max(1, MAX_INTERMEDIATE // max(1, r * pooled_height * w * c))
+        for l0 in range(0, lanes, chunk):
+            sl = slice(l0, l0 + chunk)
+            tmp = torch.einsum("lrph,lhwc->lrpwc", wy[sl], feat[sl])
+            out[sl] = torch.einsum("lrqw,lrpwc->lrpqc", wx[sl], tmp)
+        return out
 
 
 def roi_align_batched(features: torch.Tensor, rois: torch.Tensor, batch_idx: torch.Tensor,

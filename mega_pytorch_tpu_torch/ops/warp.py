@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiler import annotate
+
 
 def _clip(x: torch.Tensor, hi: float) -> torch.Tensor:
     """``x`` clipped into [0, hi] as ``jnp.clip`` computes it, a maximum then
@@ -51,10 +53,11 @@ def warp_by_flow(features: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     ((dx, dy) in pixels): output[y, x] samples features at
     ((x + dx) * W / (W - 1) - 1/2, (y + dy) * H / (H - 1) - 1/2),
     border-clamped bilinear. f32 in, f32 out."""
-    h, w = features.shape[-3], features.shape[-2]
-    dev = features.device
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    src_x = (xs + flow[..., 0]) * (w / (w - 1.0)) - 0.5
-    src_y = (ys + flow[..., 1]) * (h / (h - 1.0)) - 0.5
-    return bilinear_sample(features, src_x, src_y)
+    with annotate("warp_by_flow"):
+        h, w = features.shape[-3], features.shape[-2]
+        dev = features.device
+        ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+        src_x = (xs + flow[..., 0]) * (w / (w - 1.0)) - 0.5
+        src_y = (ys + flow[..., 1]) * (h / (h - 1.0)) - 0.5
+        return bilinear_sample(features, src_x, src_y)

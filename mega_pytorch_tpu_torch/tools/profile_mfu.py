@@ -34,8 +34,8 @@ FrozenBN statistics calibrated as ``profile_stream`` does).
    ``--peak-tflops`` (989: the H100 SXM's dense bf16 rate).
 4. device time by kernel family from a ``torch.profiler`` trace of
    ``--iters`` steps: cuDNN convolutions, GEMMs, each hand-written kernel,
-   NMS (every kernel launched inside ``ops/nms.py:nms``, which the tool
-   wraps in a ``record_function`` range while it traces), copies (casts
+   NMS (every kernel launched inside the ``nms`` span that
+   ``ops/nms.py:nms`` opens while a profiler records), copies (casts
    included), elementwise, and the rest, with each family's largest
    kernels. Families go by kernel name, so a convolution that cuDNN runs
    as a GEMM kernel counts as a GEMM; the idle share is 1 - busy / the
@@ -51,7 +51,6 @@ import argparse
 import json
 import statistics
 import subprocess
-import sys
 import tempfile
 import time
 from collections import Counter, defaultdict
@@ -62,7 +61,6 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..ops import nms as nms_mod
 from ..ops.kernels.operators import SPECIAL_FUNCTIONS
 from . import profile_stream
 
@@ -190,42 +188,18 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def _nms_ranges():
-    """Every imported module of the port that holds ``ops/nms.py:nms`` sees
-    it wrapped in a ``record_function("nms")`` range; returns the undo."""
-    plain = nms_mod.nms
-
-    def ranged(*args, **kwargs):
-        with torch.profiler.record_function("nms"):
-            return plain(*args, **kwargs)
-
-    holders = [m for name, m in list(sys.modules.items())
-               if name.startswith("mega_pytorch_tpu_torch") and getattr(m, "nms", None) is plain]
-    for m in holders:
-        m.nms = ranged
-
-    def undo():
-        for m in holders:
-            m.nms = plain
-    return undo
-
-
 def device_time_by_family(step, iters: int) -> dict:
     """Device ms a step by kernel family, from a ``torch.profiler`` trace of
     ``iters`` steps; also the device's busy ms and idle share."""
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
-    undo = _nms_ranges()
-    try:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof:
+        for _ in range(iters):
+            step()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with prof:
-            for _ in range(iters):
-                step()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        undo()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))

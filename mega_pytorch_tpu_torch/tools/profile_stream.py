@@ -23,13 +23,17 @@ iteration (RDN 4, the others 1):
 
   1. warm-up steps (cuDNN plans, the kernel build), not counted;
   2. plain steps: host clock per step with a synchronise after it;
-  3. layer steps: every piece of the step below is wrapped to synchronise
-     before and after itself, giving its host-clock ms (the pieces nest);
-  4. profiled steps under ``torch.profiler`` (CPU and CUDA activity), whose
+  3. profiled steps under ``torch.profiler`` (CPU and CUDA activity), whose
      trace is exported. From the trace: the device's busy time as the union
      of kernel, memcpy and memset intervals, the idle share as 1 - busy /
      wall, launches and host synchronisations per step, and device time by
      kernel name (the 15 largest, and every relation attention kernel).
+     From the program's own spans and counters over the same steps
+     (``utils/profiler.py``: ``lockstep_step``, ``precompute``,
+     ``backbone``, ``res5``, ``roi_align``, ``rpn_postprocess``, ``nms``,
+     ``carry``, ``detect_key``, ``flownet``, ``warp_by_flow``; ``nms.rounds``
+     and ``host_wait``): each span's calls, host ms and device ms a step
+     (the spans nest, so a span's ms hold its children's).
 
 Prints a summary and writes it, with the gzipped trace, under ``--out``.
 """
@@ -37,7 +41,6 @@ Prints a summary and writes it, with the gzipped trace, under ``--out``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import gzip
 import json
 import shutil
@@ -58,11 +61,7 @@ from ..engine.batched_inference import (
 )
 from ..engine.inference import run_video, synthetic_video, video_schedule
 from ..models.detectors import build_method_flagship
-from ..models.detectors import dff as dff_mod
-from ..models.detectors import fgfa as fgfa_mod
-from ..models.detectors import mega as mega_mod
-from ..models.detectors import rcnn as rcnn_mod
-from ..models.detectors import rdn as rdn_mod
+from ..utils import profiler
 
 CANVAS = (608, 1024)
 TRAIN_FRAME = (720, 1280)  # mega_train: VID's 720p frames, resized by the preset
@@ -168,157 +167,6 @@ def _steps(gen, n):
     return out
 
 
-@contextlib.contextmanager
-def _layer_timers(model, optimizer=None):
-    """Wrap the step's pieces (training: ``optimizer``'s step too); yields
-    {piece: [ms per call]}."""
-    calls = defaultdict(list)
-
-    def timed(label, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            calls[label].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return run
-
-    ext = model.extractor
-    method = model.v.method
-    if optimizer is not None and method == "mega":  # a training iteration
-        methods = [
-            (model, "forward_train", "forward_train (whole)"),
-            (model.backbone, "forward", "backbone, local / global / memory frames"),
-            (model.rpn, "forward", "RPN head"),
-            (ext, "extract_train", "extract_train (whole)"),
-            (ext, "enhance_features", "res5 head"),
-            (ext, "pool_flat", "ROIAlign"),
-            (ext, "fc0", "fc0"),
-            (model.predictor, "forward", "predictor"),
-            (optimizer, "step", "SGD step"),
-        ]
-        functions = [
-            (rcnn_mod, "rpn_loss", "RPN loss"),
-            (rcnn_mod, "rpn_postprocess", "RPN postprocess, cur (6000 -> 300)"),
-            (mega_mod, "rpn_postprocess", "RPN postprocess, local refs (6000 -> 75)"),
-            (rdn_mod, "rpn_postprocess", "RPN postprocess, memory / global (6000 -> 75)"),
-            (rcnn_mod, "subsample_proposals", "subsample_proposals"),
-        ]
-    elif optimizer is not None:
-        methods = [
-            (model, "forward_train", "forward_train (whole)"),
-            (model.backbone, "forward", "backbone"),
-            (model.rpn, "forward", "RPN head"),
-            (model.predictor, "forward", "predictor"),
-            (optimizer, "step", "SGD step"),
-        ]
-        functions = [
-            (rcnn_mod, "rpn_loss", "RPN loss"),
-            (rcnn_mod, "rpn_postprocess", "RPN postprocess, cur (6000 -> 300)"),
-            (rcnn_mod, "subsample_proposals", "subsample_proposals"),
-        ]
-        if method == "rdn":
-            methods += [(ext, "extract_train", "extract_train (whole)"),
-                        (ext, "enhance_features", "res5 head"),
-                        (ext, "pool_flat", "ROIAlign"),
-                        (ext, "fc0", "fc0 (fcs_0)"),
-                        (ext, "_stages", "attention stages (_stages)")]
-            functions += [(rdn_mod, "rpn_postprocess",
-                           "RPN postprocess, every frame's refs (6000 -> 75)")]
-        else:
-            methods += [(model.flownet, "forward", "FlowNetS"),
-                        (ext, "forward", "res5 head + ROIAlign + fc6/fc7")]
-            functions += [(fgfa_mod if method == "fgfa" else dff_mod, "warp_by_flow",
-                           "warp_by_flow")]
-            if method == "fgfa":
-                methods += [(model.embednet, "forward", "embedding net")]
-    elif method == "mega":
-        methods = [
-            (model, "precompute_pair", "precompute_pair (whole)"),
-            (model.backbone, "forward", "backbone, local + global frame of each lane"),
-            (model.rpn, "forward", "RPN head"),
-            (ext, "enhance_features", "res5 head + 1x1 reduce"),
-            (ext, "pool_flat", "ROIAlign"),
-            (ext, "fc0", "fc0"),
-            (model, "detect_key", "detect_key (whole)"),
-            (ext, "extract_test", "attention stages (extract_test)"),
-            (model.predictor, "forward", "predictor"),
-        ]
-        functions = [
-            (rdn_mod, "shared_ref_key_postprocess",
-             "RPN postprocess, key sets (6000 -> 300)"),
-            (mega_mod, "rpn_postprocess", "RPN postprocess, global frames (6000 -> 75)"),
-            (rcnn_mod, "postprocess_detections", "postprocess_detections (per-class NMS)"),
-        ]
-    elif method == "rdn":
-        methods = [
-            (model, "precompute", "precompute (whole)"),
-            (model.backbone, "forward", "backbone, one frame a lane"),
-            (model.rpn, "forward", "RPN head"),
-            (ext, "enhance_features", "res5 head"),
-            (ext, "pool_flat", "ROIAlign"),
-            (ext, "fc0", "fc0 (fcs_0)"),
-            (model, "detect_key", "detect_key (whole)"),
-            (ext, "extract_test", "attention stages (extract_test)"),
-            (model.predictor, "forward", "predictor"),
-        ]
-        functions = [
-            (rdn_mod, "shared_ref_key_postprocess",
-             "RPN postprocess, key sets (6000 -> 300)"),
-            (rcnn_mod, "postprocess_detections", "postprocess_detections (per-class NMS)"),
-        ]
-    else:  # fgfa, dff: the flow net, the warp, and the single-frame heads
-        warp_mod = fgfa_mod if method == "fgfa" else dff_mod
-        methods = [
-            (model.backbone, "forward", "backbone, one frame a lane (key steps for dff)"),
-            (model.flownet, "forward", "FlowNetS"),
-            (model, "detect_heads", "detect_heads (whole)"),
-            (model.rpn, "forward", "RPN head"),
-            (ext, "forward", "res5 head + ROIAlign + fc6/fc7"),
-            (model.predictor, "forward", "predictor"),
-        ]
-        if method == "fgfa":
-            methods += [(model, "precompute", "precompute (whole)"),
-                        (model.embednet, "forward", "embedding net"),
-                        (model, "detect_key", "detect_key (whole)")]
-        else:
-            methods += [(model, "detect_non_key", "detect_non_key (whole)")]
-        functions = [
-            (warp_mod, "warp_by_flow", "warp_by_flow"),
-            (rcnn_mod, "rpn_postprocess", "RPN postprocess (6000 -> 300)"),
-            (rcnn_mod, "postprocess_detections", "postprocess_detections (per-class NMS)"),
-        ]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in functions]
-    # an instance's own attribute (the LR scheduler's wrapper of
-    # optimizer.step) is put back; elsewhere the class attribute shows through
-    own = [(obj, name, vars(obj).get(name)) for obj, name, _ in methods]
-    for obj, name, label in methods:
-        setattr(obj, name, timed(label, getattr(obj, name)))
-    for mod, name, label in functions:
-        setattr(mod, name, timed(label, getattr(mod, name)))
-    try:
-        yield calls
-    finally:
-        for obj, name, fn in own:
-            if fn is None:
-                delattr(obj, name)
-            else:
-                setattr(obj, name, fn)
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-
-
-def _per_step_median(ms, steps):
-    """Median over steps of a piece's summed ms (its calls come in step order,
-    the same number in each step); the mean over the steps where a piece
-    runs on some steps only (DFF's backbone, on key steps)."""
-    per = len(ms) // steps
-    if per * steps != len(ms) or per == 0:
-        return sum(ms) / steps
-    return statistics.median(sum(ms[i * per:(i + 1) * per]) for i in range(steps))
-
-
 def _union_us(intervals):
     total, end = 0.0, -float("inf")
     for start, stop in sorted(intervals):
@@ -398,14 +246,13 @@ def main(argv=None):
             gen = _lockstep_steps(model, lanes, rs)
     _steps(gen, WARMUP)
     plain = _steps(gen, STEPS)
-    with _layer_timers(model, optimizer) as calls:
-        layered = _steps(gen, STEPS)
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
     prof.start()
     profiled = _steps(gen, STEPS)
     prof.stop()
     gen.close()
+    spans = profiler.recorded()
 
     raw = out / "trace.json"
     prof.export_chrome_trace(str(raw))
@@ -422,12 +269,12 @@ def main(argv=None):
         "steps": {"warmup": WARMUP, "per_phase": STEPS},
         "plain_ms_per_step_median": statistics.median(plain),
         "plain_ms_per_step": plain,
-        "layered_ms_per_step_median": statistics.median(layered),
-        "layer_ms_per_step_median": {
-            label: _per_step_median(ms, STEPS) for label, ms in calls.items()},
-        "layer_calls_per_step": {label: len(ms) / STEPS
-                                 for label, ms in calls.items()},
         "profiled_ms_per_step_median": statistics.median(profiled),
+        "span_per_step": {
+            name: {"calls": e["calls"] / STEPS, "host_ms": e["host_ms"] / STEPS,
+                   "device_ms": None if e["device_ms"] is None else e["device_ms"] / STEPS}
+            for name, e in spans["spans"].items()},
+        "counters_per_step": {name: n / STEPS for name, n in spans["counters"].items()},
         "trace": _trace_summary(events, STEPS, sum(profiled)),
     }
     (out / "summary.json").write_text(json.dumps(summary, indent=1))
