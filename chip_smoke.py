@@ -21,7 +21,10 @@ Phases, each printing its own lines:
      attention mode whose every lane equals the 1-lane call exactly; each
      with the kernel's and the plain version's time (TF32 off), the bound
      from the card's peak rates and, for "none" and "input", the time of
-     ``scaled_dot_product_attention`` on the same inputs;
+     ``scaled_dot_product_attention`` on the same inputs; ROIAlign at MEGA's
+     key and global calls and FGFA's call (bf16 maps into bf16, within 1e-5
+     of the largest magnitude in f32), with its time, the plain version's
+     and its byte bound (no library yardstick: no torchvision);
   4. stream: MEGA R-101 in bf16 at 608x1024 with seeded random weights runs a
      40-frame synthetic video through ``run_video`` (one lane); detections
      must be finite with 300 slots, and every kernel launch count must be
@@ -32,8 +35,8 @@ Phases, each printing its own lines:
      12-40 frames from an in-memory dataset through
      ``compute_on_dataset_lockstep``; every frame must be emitted exactly
      once, detections finite with 300 slots, each step must launch 1 stem
-     pool, 2 "none" and 3 "compute" kernels whatever the lane count (and no
-     "input" or standalone position-bias kernel), and the
+     pool, 2 "none", 3 "compute" and 2 ROIAlign kernels whatever the lane
+     count (and no "input" or standalone position-bias kernel), and the
      first 15 steps re-run from fresh carries must be bit-identical; prints
      ms/step, frames/s and peak memory;
   7. position-bias paths: ``RelationAttention(pos_emb=...)`` (mode "input")
@@ -50,11 +53,13 @@ Phases, each printing its own lines:
      weights, built for 4 lanes, serve 8 synthetic videos of 12-40 frames
      through ``compute_on_dataset_lockstep``; every frame must be emitted
      exactly once with finite boxes, each step must launch exactly RDN's 1
-     stem pool and 4 "compute" kernels (FGFA and DFF: no kernel), and the
+     stem pool, 4 "compute" and 1 ROIAlign kernels (FGFA and DFF: 1
+     ROIAlign), and the
      first 15 steps re-run from fresh carries must be bit-identical; prints
      ms/step, frames/s and peak memory;
   10. base: the single-frame detector's ``forward_test`` on 4 packed frames
-     launches the stem pool once a call and gives finite detections; its
+     launches the stem pool and ROIAlign once a call and gives finite
+     detections; its
      stem on s2d(2)-packed frames of the canvas launches no kernel and in
      f32 equals the canonical branch within 1e-4 + 1e-5 max|out|;
   11. eval path: the evaluation entry point's code over a synthetic
@@ -242,27 +247,33 @@ TRAIN_ATTENTION = {
 # kernel is listed, so that its 0 is measured too
 _NO_KERNEL = {"stem_pool_packed": 0, "flash_relation_attention": 0,
               "flash_relation_attention_pos": 0, "flash_relation_attention_bias": 0,
-              "fused_position_bias": 0}
+              "fused_position_bias": 0, "roi_align": 0}
+# ROIAlign: MEGA pools the key frames' and the global frames' proposals (the
+# refs are the key set's first 75), RDN the key set, FGFA and DFF the box
+# head's proposals
 PER_STEP = {
     "mega": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention=2,
-                 flash_relation_attention_pos=3),
-    "rdn": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention_pos=4),
-    "fgfa": _NO_KERNEL,
-    "dff": _NO_KERNEL,
+                 flash_relation_attention_pos=3, roi_align=2),
+    "rdn": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention_pos=4, roi_align=1),
+    "fgfa": dict(_NO_KERNEL, roi_align=1),
+    "dff": dict(_NO_KERNEL, roi_align=1),
 }
 # a training iteration: the canonical stem on RGB frames (no stem pool),
-# the position bias in plain f32 into mode "input", no "compute"
-PER_ITER_TRAIN = dict(_NO_KERNEL, flash_relation_attention=3, flash_relation_attention_bias=5)
+# the position bias in plain f32 into mode "input", no "compute"; ROIAlign
+# of the global, memory, key and local pools
+PER_ITER_TRAIN = dict(_NO_KERNEL, flash_relation_attention=3, flash_relation_attention_bias=5,
+                      roi_align=4)
 # RDN, FGFA and DFF training (phase 14): iterations and the checkpoint's
 # iteration; per iteration, RDN's IMS_PER_BATCH 4 samples each launch
-# "input" at its 2 base stages, the advanced stage and the final stage;
-# FGFA and DFF reach no kernel (RGB frames, no attention)
+# "input" at its 2 base stages, the advanced stage and the final stage, and
+# ROIAlign of the key ROIs and of the refs; FGFA and DFF reach ROIAlign
+# alone, once for the box head (RGB frames, no attention)
 METHOD_TRAIN_ITERS, METHOD_TRAIN_CKPT = 6, 3
 METHOD_TRAIN = {
     "rdn": ("rdn_R_101", "VIDRDNDataset",
-            dict(_NO_KERNEL, flash_relation_attention_bias=16)),
-    "fgfa": ("fgfa_R_101", "VIDFGFADataset", _NO_KERNEL),
-    "dff": ("dff_R_101", "VIDDFFDataset", _NO_KERNEL),
+            dict(_NO_KERNEL, flash_relation_attention_bias=16, roi_align=8)),
+    "fgfa": ("fgfa_R_101", "VIDFGFADataset", dict(_NO_KERNEL, roi_align=1)),
+    "dff": ("dff_R_101", "VIDDFFDataset", dict(_NO_KERNEL, roi_align=1)),
 }
 # the one-rank NCCL DDP step (phase 15): iterations of rdn_R_101 against
 # the plain step (tools/ddp_check.py states the bound)
@@ -466,6 +477,65 @@ def _stage_bias(pb, x):
         pb.reference_position_bias(x["rois"][i:i + 1], x["refs"][i:i + 1], x["wk"],
                                    x["wb"], 64, sin_dtype=torch.float32)
         for i in range(x["q"].shape[0])]).contiguous()
+
+
+# ROIAlign at the flagship paths' calls (phase 3): (label, lanes, ROIs, map
+# (H, W, C), pooled, whether the map is every other one of a lane pair, as
+# MEGA's global maps are); boxes of 16-512 pixels anywhere on the canvas;
+# the kernel within ROI_ALIGN_RTOL of the largest magnitude from the plain
+# version (f32 sums in another order)
+ROI_ALIGN_CALLS = (("mega key", LANES, 300, (38, 64, 2048), 7, True),
+                   ("mega global", LANES, 75, (38, 64, 2048), 7, True),
+                   ("fgfa", METHOD_LANES, 300, (38, 64, 2048), 7, False))
+ROI_ALIGN_RTOL = 1e-5
+
+
+def _roi_align_rows(gen, dev):
+    """Each ROI_ALIGN_CALLS call with a bf16 map into a bf16 output, as
+    ``Res5Pooler.pool_flat`` calls it: the kernel against the plain version
+    (which rounds its f32 result once), and the f32 output within
+    ROI_ALIGN_RTOL; kernel and plain ms, and the bound: the output written
+    once and each lane's map read once. There is no library yardstick:
+    torchvision, whose ``roi_align`` is the usual one, is not installed."""
+    import torch
+    from mega_pytorch_tpu_torch.ops import roi_align as ra
+
+    rows = {}
+    for label, lanes, count, (h, w, c), pooled, paired in ROI_ALIGN_CALLS:
+        maps = torch.randn(lanes, 2 if paired else 1, h, w, c, generator=gen, device=dev)
+        feat = maps.to(torch.bfloat16)[:, -1]
+        del maps
+        canvas = torch.tensor([16.0 * w, 16.0 * h], device=dev)
+        ctr = torch.rand(lanes, count, 2, generator=gen, device=dev) * canvas
+        wh = 16 + torch.rand(lanes, count, 2, generator=gen, device=dev) * 496
+        rois = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+        args = (1 / 16, pooled, pooled, 0, 10)
+        got = ra.roi_align(feat, rois, *args)
+        want = ra.roi_align_reference(feat, rois, *args)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        bf16 = torch.bfloat16
+
+        def kernel():
+            return ra.roi_align(feat, rois, *args, out_dtype=bf16)
+
+        def plain():
+            return ra.roi_align_reference(feat, rois, *args, out_dtype=bf16)
+
+        ms, plain_ms = _time_pair(plain, kernel, repeats=5)
+        out = kernel()
+        bound = _bound(_nbytes(out, rois) + lanes * h * w * c * feat.element_size())
+        print(f"[kernels] roi_align {label} ({lanes}, {count}) on ({h}, {w}, {c}) bf16, "
+              f"{pooled}x{pooled} into bf16: f32 max_abs_err {err:.3e} (rtol "
+              f"{ROI_ALIGN_RTOL} of {scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+              f"{bound['bound_ms'] / ms:.3f}; no library yardstick (no torchvision)")
+        if not (err <= ROI_ALIGN_RTOL * scale and torch.isfinite(got).all()):
+            _fail(f"roi_align {label} differs from its plain version beyond tolerance")
+        rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                           **bound)
+        del feat, rois, got, want, out
+    return rows
 
 
 def phase_kernels():
@@ -695,6 +765,9 @@ def phase_kernels():
               f"{same}")
         if not same:
             _fail(f"mode {mode}: a {LANES}-lane call differs from its 1-lane calls")
+    del x, bias
+    roi_rows = _roi_align_rows(gen, dev)
+    rows["roi_align"] = dict(roi_rows["mega key"], calls=roi_rows)
     return rows
 
 
@@ -769,6 +842,7 @@ def phase_stream():
     from mega_pytorch_tpu_torch.models.detectors.mega import build_mega_flagship
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
     from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+    from mega_pytorch_tpu_torch.ops.roi_align import roi_align
 
     t0 = time.perf_counter()
     model = build_mega_flagship(*CANVAS, device="cuda",
@@ -779,7 +853,7 @@ def phase_stream():
           f"{time.perf_counter() - t0:.1f} s; frames {frames.shape} uint8")
 
     kernels = (sp.stem_pool_packed, ra.flash_relation_attention,
-               ra.flash_relation_attention_pos)
+               ra.flash_relation_attention_pos, roi_align)
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
@@ -794,7 +868,7 @@ def phase_stream():
     launches = {k.__name__: k.launches for k in kernels}
     steps = len(outs)
     expect = {"stem_pool_packed": steps, "flash_relation_attention": 2 * steps,
-              "flash_relation_attention_pos": 3 * steps}
+              "flash_relation_attention_pos": 3 * steps, "roi_align": 2 * steps}
     print(f"[stream] steps {steps} (40 frames + 12 warm-up); launches {launches}; "
           f"expected {expect}")
     if launches != expect:
@@ -889,10 +963,11 @@ def _kernels():
     from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
     from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+    from mega_pytorch_tpu_torch.ops.roi_align import roi_align
 
     return (sp.stem_pool_packed, ra.flash_relation_attention,
             ra.flash_relation_attention_pos, ra.flash_relation_attention_bias,
-            pb.fused_position_bias)
+            pb.fused_position_bias, roi_align)
 
 
 def run_lanes(model, ds, lanes, dev, run=None, tag=None):
@@ -1100,7 +1175,8 @@ def phase_methods(smi):
 
 def phase_base(smi):
     """The single-frame detector on 4 s2d(4)-packed frames: one stem pool
-    launch a call, no other kernel, finite detections. Returns the launches."""
+    and one ROIAlign launch a call, no other kernel, finite detections.
+    Returns the launches."""
     import torch
     from mega_pytorch_tpu_torch.data.transforms import normalize_u8_frames, s2d_pack_frames
     from mega_pytorch_tpu_torch.models.detectors import build_method_flagship
@@ -1124,7 +1200,7 @@ def phase_base(smi):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
     launches = {k.__name__: k.launches for k in kernels}
-    expect = dict(_NO_KERNEL, stem_pool_packed=calls)
+    expect = dict(_NO_KERNEL, stem_pool_packed=calls, roi_align=calls)
     finite = bool(torch.isfinite(dets.boxes).all() and torch.isfinite(dets.scores).all())
     print(f"[base] forward_test on {METHOD_LANES} packed frames x {calls} calls: "
           f"launches {launches} (expected {expect}); detections "
@@ -1375,9 +1451,10 @@ def run_eval_path(dev, cfg, base_cfg, frame_hw, lengths, portrait, lanes, smi, t
               f"{len(video) / base_s:.2f} frames/s, launches {base_launches}; {smi}")
         if sorted(base_preds) != video or not finite:
             _fail(f"{tag}: the base method's serial run did not predict every frame")
-        if base_launches != dict(_NO_KERNEL, stem_pool_packed=len(video)):
+        if base_launches != dict(_NO_KERNEL, stem_pool_packed=len(video),
+                                 roi_align=len(video)):
             _fail(f"{tag}: the serial base run launched {base_launches}, not one stem pool "
-                  f"a frame")
+                  f"and one ROIAlign a frame")
         del base
     return launches, per_step, lane["ms_per_step"], base_launches
 
@@ -1948,7 +2025,8 @@ def phase_tta(smi):
     inside = all(np.isfinite(p["boxes"]).all() and (not len(p["boxes"]) or (
         p["boxes"][:, [0, 2]].max() <= w + 1 and p["boxes"][:, [1, 3]].max() <= h + 1
         and p["boxes"].min() >= -1)) for p in preds.values())
-    expect = dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS * TTA_FRAMES)
+    expect = dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS * TTA_FRAMES,
+                  roi_align=TTA_RUNS * TTA_FRAMES)
     warm = {k: statistics.median(f[k] for f in frames[1:]) for k in ("ms", "prep_ms", "runs_ms")}
     rest = warm["ms"] - warm["prep_ms"] - warm["runs_ms"]
     per_frame = "; ".join(f"{f['ms']:.1f} ms (preprocessing {f['prep_ms']:.1f}, runs "
@@ -1971,7 +2049,7 @@ def phase_tta(smi):
         _fail(f"tta: launches {launches} != {expect}, or not {TTA_RUNS} stem pools in "
               f"every frame ({[f['stem_pools'] for f in frames]})")
     torch.cuda.empty_cache()
-    return launches, dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS), warm["ms"]
+    return launches, dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS, roi_align=TTA_RUNS), warm["ms"]
 
 
 def phase_demo(smi):
@@ -2067,7 +2145,7 @@ def phase_demo(smi):
     if not same:
         _fail("demo: detections differ from StreamingInferencer's")
     path_kernels = ("stem_pool_packed", "flash_relation_attention",
-                    "flash_relation_attention_pos")
+                    "flash_relation_attention_pos", "roi_align")
     if (not all(launches[k] > 0 for k in path_kernels)
             or launches["flash_relation_attention_bias"] or launches["fused_position_bias"]
             or launches["flash_relation_attention"] % DEMO_FRAMES
@@ -2134,8 +2212,9 @@ def phase_gn(smi):
           f"{RTOL_GN_MAX}), mean error {rel_mean:.3e} of the mean magnitude (tolerance "
           f"{RTOL_GN_MEAN}); forward_test finite {finite}; launches {launches} (f32 packed "
           f"route: {launches_f32}); {smi}")
-    if launches != _NO_KERNEL or launches_f32:
-        _fail(f"gn: launches {launches}, {launches_f32}: the GN stem must take no kernel")
+    if launches != dict(_NO_KERNEL, roi_align=1) or launches_f32 != 1:
+        _fail(f"gn: launches {launches}, {launches_f32}: the GN stem must take no kernel "
+              f"(forward_test's one ROIAlign aside)")
     if not (rel_f32 <= RTOL_GN_F32 and rel_max <= RTOL_GN_MAX
             and rel_mean <= RTOL_GN_MEAN) or not finite:
         _fail("gn: the GN backbone differs from its f32 canonical self or is not finite")
@@ -2612,7 +2691,10 @@ def phase_zoo(smi):
               f"finite {finite}; mask loss {loss.item():.4f}")
         if fpn_launches != dict(_NO_KERNEL, stem_pool_packed=1) or shapes != want:
             _fail(f"zoo: R-50-FPN launched {fpn_launches} or gave {shapes}")
-        if not (finite and inside) or launches != dict(_NO_KERNEL, stem_pool_packed=2):
+        # ROIAlign: the mask head for mask_probs and mask_losses, the targets
+        # of each frame's instance masks, the keypoint head
+        zoo_launches = dict(_NO_KERNEL, stem_pool_packed=2, roi_align=3 + ZOO_FRAMES)
+        if not (finite and inside) or launches != zoo_launches:
             _fail(f"zoo: outputs not finite, boxes outside the image, or launches {launches}")
 
         ms = {}
@@ -2799,9 +2881,9 @@ def _classic_forward(m, packed, rois):
 def _phase_classic_head(dev, pickle_path, kernels, smi):
     """The base R-101 C4 body (res2-res5 from the pickle) on one packed
     608x1024 frame, then CLASSIC_ROIS proposals through the classic head and
-    FastRCNNPredictor in bf16: one stem pool launch, finite outputs, ms and
-    peak memory; the same modules in f32 at 128x192 on the card against the
-    CPU. Returns the launches of the bf16 call."""
+    FastRCNNPredictor in bf16: one stem pool and one ROIAlign launch, finite
+    outputs, ms and peak memory; the same modules in f32 at 128x192 on the
+    card against the CPU. Returns the launches of the bf16 call."""
     import torch
     from mega_pytorch_tpu_torch.utils.model_ingest import load_c2_weights
 
@@ -2827,7 +2909,8 @@ def _phase_classic_head(dev, pickle_path, kernels, smi):
           f"res5 with stride 2) and FastRCNNPredictor, bf16: {ms:.3f} ms (the body alone "
           f"{body_ms:.3f}), peak {peak:.0f} MB ({scratch:.0f} MB above the weights and "
           f"inputs); outputs {shapes}, finite {finite}; launches {launches}; {smi}")
-    if shapes != want or not finite or launches != dict(_NO_KERNEL, stem_pool_packed=1):
+    if (shapes != want or not finite
+            or launches != dict(_NO_KERNEL, stem_pool_packed=1, roi_align=1)):
         _fail(f"classic: outputs {shapes} (want {want}), finite {finite}, launches {launches}")
     del head, out
     rois_small = torch.from_numpy(_zoo_boxes(rs, 1, 16, *ZOO_SMALL, lo=8.0, hi=100.0))
@@ -3059,6 +3142,8 @@ def main():
         "fused_position_bias": (
             "cuda", "mega_pytorch_tpu_torch/csrc/position_bias.cu",
             "mega_pytorch_tpu/ops/pallas/position_bias.py:112"),
+        "roi_align": ("cuda", "mega_pytorch_tpu_torch/csrc/roi_align.cu",
+                      "none (mega_pytorch_tpu/ops/roi_align.py is plain JAX)"),
     }
     # launches: each path's run counts from 0 and is read just after it: the
     # MEGA lanes run (phase 6), the methods (phase 9), the base detector

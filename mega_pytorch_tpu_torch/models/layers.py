@@ -194,8 +194,13 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(self.dtype)
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                         self.bias.float(), self.eps).to(self.dtype)
+        if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+            # CUDA's group_norm returns NCHW memory; the port's NHWC views
+            # (and the ROIAlign kernel) need channels_last
+            y = y.contiguous(memory_format=torch.channels_last)
+        return y
 
 
 class DeformRoIPooling(nn.Module):

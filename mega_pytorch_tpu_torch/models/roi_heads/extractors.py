@@ -57,8 +57,8 @@ class ResNet50Conv5ROIFeatureExtractor(torch.nn.Module):
 
     def forward(self, c4: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
         """(L, H, W, 1024) C4 maps, (L, R, 4) rois → (L, R, r/2, r/2, 2048) f32."""
-        pooled = roi_align(c4.float(), rois, self.spatial_scale, self.resolution,
-                           self.resolution, self.sampling_ratio)
+        pooled = roi_align(c4, rois, self.spatial_scale, self.resolution,
+                           self.resolution, self.sampling_ratio, out_dtype=self.dtype)
         lanes, r = pooled.shape[:2]
-        x = self.head(pooled.flatten(0, 1).to(self.dtype))
+        x = self.head(pooled.flatten(0, 1))
         return x.reshape(lanes, r, *x.shape[1:]).float()

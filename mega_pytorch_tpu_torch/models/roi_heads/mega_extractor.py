@@ -64,10 +64,10 @@ class Res5Pooler(nn.Module):
         return x
 
     def pool_flat(self, feat_map: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-        """(L, H, W, C) maps, (L, R, 4) rois → (L, R, res*res*C) f32, (h, w, c)
-        order."""
-        pooled = roi_align(feat_map.float(), rois, self.spatial_scale,
-                           self.resolution, self.resolution, self.sampling_ratio)
+        """(L, H, W, C) maps, (L, R, 4) rois → (L, R, res*res*C) in the compute
+        dtype, which the fc that takes them casts to anyway, (h, w, c) order."""
+        pooled = roi_align(feat_map, rois, self.spatial_scale, self.resolution,
+                           self.resolution, self.sampling_ratio, out_dtype=self.dtype)
         return pooled.flatten(2)
 
 

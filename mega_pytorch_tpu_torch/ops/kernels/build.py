@@ -29,6 +29,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "stem_pool_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -37,6 +39,9 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
     "position_bias_launch": (_P, _P, _P, _P, _I, _I, _P),
+    "roi_align_launch": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _F, _I, _I, _I, _I, _P,
+    ),
 }
 
 

@@ -73,7 +73,8 @@ HAND_WRITTEN = (("stem_pool_kernel", "stem_pool_packed"),
                 ("relation_attention_tc_kernel<true", "relation attention \"input\""),
                 ("relation_attention_tc_kernel<(bool)1", "relation attention \"input\""),
                 ("relation_attention_tc_kernel", "relation attention \"none\""),
-                ("position_bias_kernel", "fused_position_bias"))
+                ("position_bias_kernel", "fused_position_bias"),
+                ("roi_align_kernel", "roi_align"))
 CONV = ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_convolve")
 GEMM = ("gemm", "gemv", "nvjet", "cublas", "cutlass", "splitk", "dot_kernel")
 COPY = ("copy",)

@@ -621,3 +621,166 @@ def test_gn_stem_launches_no_stem_pool(cuda, dtype):
     if dtype == "float32":
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.isfinite(got.float()).all()
+
+
+# -- ROIAlign ----------------------------------------------------------------------
+# the kernel against the plain version: the same taps and weights, the sums in
+# another order (f32 FMAs against the plain version's f32 products), so within
+# f32 summation rounding of the output's largest magnitude; a bf16 output
+# within one bf16 step of the plain f32 result rounded to bf16
+RTOL_ROI_ALIGN = 1e-5
+
+
+def _roi_boxes(rs, lanes, count, canvas=(608, 1024)):
+    """(lanes, count, 4) boxes of 16-316 pixels, with the cases at the
+    edges in front: zero extent, partly outside [-1, size], on the last
+    row and column, and past the map far enough to reach max_grid."""
+    h, w = canvas
+    edge = np.array([[100, 100, 100, 100], [-40, -30, 60, 50], [w - 20, h - 10, w + 80, h + 60],
+                     [w - 1, h - 1, w - 1, h - 1], [w - 16, h - 16, w, h],
+                     [-400, -400, w + 500, h + 600], [0, 0, w, h], [-5000, 10, -4000, 90]],
+                    np.float32)
+    boxes = np.stack([_flagship_boxes(rs, count, canvas) for _ in range(lanes)])
+    boxes[:, :len(edge)] = edge[:count]
+    return boxes
+
+
+def _roi_inputs(dev, seed, lanes, count, h, w, c, dtype, strided=False):
+    rs = np.random.RandomState(seed)
+    feat = torch.from_numpy(rs.randn(lanes, 2 if strided else 1, h, w, c).astype(np.float32))
+    feat = feat.to(dev, dtype)
+    feat = feat[:, 1] if strided else feat[:, 0]  # a lane stride of two maps, as MEGA's
+    rois = torch.from_numpy(_roi_boxes(rs, lanes, count, (16 * h, 16 * w))).to(dev)
+    return feat, rois
+
+
+def _bf16_step(x):
+    """One bf16 step (unit in the last place) at each |x|."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _assert_roi_align(got, feat, rois, args, out_dtype):
+    """f32: within RTOL_ROI_ALIGN of the largest magnitude from the plain
+    version. bf16: the kernel's own f32 sums rounded once, and within one
+    bf16 step of the plain f32 result (plus that f32 rounding)."""
+    from mega_pytorch_tpu_torch.ops import roi_align as ra_
+
+    want = ra_.roi_align_reference(feat, rois, *args)  # f32
+    assert got.dtype == out_dtype and got.shape == want.shape
+    slack = RTOL_ROI_ALIGN * float(want.abs().max())
+    if out_dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= slack, (err, slack)
+    else:
+        assert torch.equal(got, ra_.roi_align(feat, rois, *args).to(torch.bfloat16))
+        excess = (got.float() - want).abs() - _bf16_step(want) - slack
+        assert float(excess.max()) <= 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    # name: lanes, ROIs, map (H, W, C), map dtype, pooled, sampling ratio, lane-strided map
+    ("mega", 12, 300, 38, 64, 2048, "bfloat16", 7, 0, True),
+    ("mega global", 12, 75, 38, 64, 2048, "bfloat16", 7, 0, True),
+    ("fgfa classic head", 4, 300, 38, 64, 1024, "bfloat16", 14, 0, False),
+    ("f32 map", 2, 40, 38, 64, 256, "float32", 7, 0, False),
+    ("sampling ratio 2", 2, 40, 20, 30, 256, "bfloat16", 7, 2, False),
+    ("sampling ratio 3, 28 bins", 3, 17, 25, 21, 64, "float32", 28, 3, False),
+    ("C = 36, not a multiple of 8", 2, 30, 19, 23, 36, "bfloat16", 7, 0, False),
+    ("C = 3", 2, 30, 19, 23, 3, "float32", 7, 0, False),
+    ("C = 1, one ROI a lane", 9, 1, 40, 52, 1, "float32", 28, 2, False),
+    ("one ROI", 1, 1, 38, 64, 2048, "bfloat16", 7, 0, False),
+], ids=lambda c: c[0])
+def test_roi_align_kernel_matches_plain(cuda, case, out):
+    from mega_pytorch_tpu_torch.ops import roi_align as ra_
+
+    _, lanes, count, h, w, c, dtype, pooled, ratio, strided = case
+    feat, rois = _roi_inputs(cuda, count + c, lanes, count, h, w, c, getattr(torch, dtype),
+                             strided)
+    out_dtype = getattr(torch, out)
+    args = (1 / 16, pooled, pooled, ratio, 10)
+    before = ra_.roi_align.launches
+    got = ra_.roi_align(feat, rois, *args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ra_.roi_align.launches == before + 1
+    _assert_roi_align(got, feat, rois, args, out_dtype)
+
+
+@pytest.mark.cuda
+def test_roi_align_counts_its_launches(cuda):
+    """One launch a call, counted on the wrapper and, while spans record, by
+    the ``roi_align.launches`` counter inside the ``roi_align`` span; the
+    plain version on CPU tensors launches nothing."""
+    from mega_pytorch_tpu_torch.ops import roi_align as ra_
+    from mega_pytorch_tpu_torch.utils import profiler
+
+    feat, rois = _roi_inputs(cuda, 3, 2, 20, 19, 23, 64, torch.bfloat16)
+    before = ra_.roi_align.launches
+    with profiler.recording():
+        for _ in range(3):
+            ra_.roi_align(feat, rois, 1 / 16)
+        ra_.roi_align(feat.cpu(), rois.cpu(), 1 / 16)
+    assert ra_.roi_align.launches == before + 3
+    rec = profiler.recorded()
+    assert rec["counters"]["roi_align.launches"] == 3
+    assert rec["counters_by_span"]["roi_align"] == {"roi_align.launches": 3}
+    assert rec["spans"]["roi_align"]["calls"] == 4
+
+
+@pytest.mark.cuda
+def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
+    from mega_pytorch_tpu_torch.ops import roi_align as ra_
+
+    feat, rois = _roi_inputs(cuda, 4, 2, 5, 19, 23, 64, torch.float32)
+    with pytest.raises(ValueError, match="channel-last"):
+        ra_.roi_align(feat.permute(0, 3, 1, 2).contiguous().permute(0, 1, 3, 2), rois, 1 / 16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ra_.roi_align(feat.half(), rois, 1 / 16)
+    with pytest.raises(ValueError, match="one device"):
+        ra_.roi_align(feat, rois.cpu(), 1 / 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("roi_grad", [False, True])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_roi_align_function_gradients(cuda, out, roi_grad):
+    """Under grad the call takes ROIAlignFunction: one launch, the forward
+    the kernel's bit for bit, nothing launched in backward, and the
+    gradients of the map (and of the ROIs) against autograd through the
+    plain version, which its backward recomputes on the same operands."""
+    from mega_pytorch_tpu_torch.ops import roi_align as ra_
+
+    feat, rois = _roi_inputs(cuda, 5, 3, 40, 19, 23, 256, torch.bfloat16)
+    out_dtype = getattr(torch, out)
+    args = (1 / 16, 7, 7, 0, 10, out_dtype)
+    want_out = ra_.roi_align(feat, rois, *args[:-1], out_dtype=out_dtype)
+    ops = [feat.clone().requires_grad_(), rois.clone().requires_grad_(roi_grad)]
+    before = ra_.roi_align.launches
+    got_out = ra_.roi_align(*ops, *args[:-1], out_dtype=out_dtype)
+    assert ra_.roi_align.launches == before + 1 and torch.equal(got_out, want_out)
+    cot = torch.randn(got_out.shape, generator=torch.Generator(cuda).manual_seed(1),
+                      device=cuda).to(out_dtype)
+    leaves = ops if roi_grad else ops[:1]
+    got = torch.autograd.grad(got_out, leaves, cot)
+    assert ra_.roi_align.launches == before + 1
+    want = torch.autograd.grad(ra_.roi_align_reference(*ops, *args), leaves, cot)
+    for name, op, g, w in zip(("features", "rois"), leaves, got, want):
+        assert g.dtype == op.dtype and torch.isfinite(g).all(), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 1e-6 * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_group_norm_keeps_channels_last(cuda):
+    """CUDA's group_norm returns NCHW memory; ``GroupNorm`` hands a
+    channels_last input back as channels_last, so the NHWC maps of a GN
+    body reach the ROIAlign kernel with channel stride 1."""
+    from mega_pytorch_tpu_torch.models.layers import GroupNorm
+
+    x = torch.randn(2, 64, 9, 11, device=cuda).contiguous(memory_format=torch.channels_last)
+    gn = GroupNorm(64, torch.bfloat16, cuda)
+    y = gn(x)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert y.permute(0, 2, 3, 1).stride(-1) == 1
