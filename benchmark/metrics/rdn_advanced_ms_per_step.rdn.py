@@ -1,0 +1,10 @@
+"""Device ms a step inside the program's ``rdn_advanced`` spans (RDN's
+distillation, advanced stage and last attention in
+``RDNFeatureExtractor._stages``, inside ``detect_key``), start event to end
+event."""
+
+from benchmark.harness import program_spans
+
+
+def read(ctx):
+    return program_spans.per_step(ctx, program_spans.span_ms("rdn_advanced"))

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiler import annotate
 from ..layers import Dense
 from .attention import RelationAttention
 from .mega_extractor import Res5Pooler, distill
@@ -71,28 +72,32 @@ class RDNFeatureExtractor(Res5Pooler):
         with ``skip_first_fc``, features with fcs_0 applied; x_refs (L, M, D)
         fc0 features of the refs, M = T * base_num in frame blocks;
         cur_rois (L, N, 4), ref_rois (L, M, 4), ref_valid (L, M); ``precise``
-        passes ``precise_bias`` to every attention → (L, N, D)."""
-        for i in range(self.base_stage):
-            if not (skip_first_fc and i == 0):
-                x = self._fc(i, x)
-            x = x + self.attn(i)(x, x_refs, ref_valid, pos_rois=(cur_rois, ref_rois),
-                                 precise_bias=precise)
+        passes ``precise_bias`` to every attention → (L, N, D). Spans
+        ``rdn_base`` (the base stages) and ``rdn_advanced`` (the
+        distillation, the advanced stage and the last attention)."""
+        with annotate("rdn_base"):
+            for i in range(self.base_stage):
+                if not (skip_first_fc and i == 0):
+                    x = self._fc(i, x)
+                x = x + self.attn(i)(x, x_refs, ref_valid, pos_rois=(cur_rois, ref_rois),
+                                     precise_bias=precise)
         if self.advanced_stage == 0:
             return x
-        # the top advanced_num refs of each frame, which relies on the RPN's
-        # NMS emitting each frame's proposals in descending score order
-        t = x_refs.shape[1] // self.base_num
-        refs_adv, rois_adv, valid_adv = (
-            distill(a, t, self.base_num, self.advanced_num)
-            for a in (x_refs, ref_rois, ref_valid))
-        for i in range(self.advanced_stage):
-            j = self.base_stage + i
-            att = self.attn(j)(refs_adv, x_refs, ref_valid, pos_rois=(rois_adv, ref_rois),
-                               precise_bias=precise)
-            refs_adv = self._fc(j, refs_adv + att)
-        last = self.attn(self.base_stage + self.advanced_stage)
-        return x + last(x, refs_adv, valid_adv, pos_rois=(cur_rois, rois_adv),
-                        precise_bias=precise)
+        with annotate("rdn_advanced"):
+            # the top advanced_num refs of each frame, which relies on the RPN's
+            # NMS emitting each frame's proposals in descending score order
+            t = x_refs.shape[1] // self.base_num
+            refs_adv, rois_adv, valid_adv = (
+                distill(a, t, self.base_num, self.advanced_num)
+                for a in (x_refs, ref_rois, ref_valid))
+            for i in range(self.advanced_stage):
+                j = self.base_stage + i
+                att = self.attn(j)(refs_adv, x_refs, ref_valid, pos_rois=(rois_adv, ref_rois),
+                                   precise_bias=precise)
+                refs_adv = self._fc(j, refs_adv + att)
+            last = self.attn(self.base_stage + self.advanced_stage)
+            return x + last(x, refs_adv, valid_adv, pos_rois=(cur_rois, rois_adv),
+                            precise_bias=precise)
 
     def extract_train(self, maps, key_rois, ref_rois, ref_valid):
         """One training sample: C4 maps (F, h, w, 1024), frame 0 the current
