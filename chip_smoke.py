@@ -24,7 +24,10 @@ Phases, each printing its own lines:
      ``scaled_dot_product_attention`` on the same inputs; ROIAlign at MEGA's
      key and global calls and FGFA's call (bf16 maps into bf16, within 1e-5
      of the largest magnitude in f32), with its time, the plain version's
-     and its byte bound (no library yardstick: no torchvision);
+     and its byte bound (no library yardstick: no torchvision); the
+     bottleneck epilogue at MEGA's 24 maps of each stage (bit for bit the
+     plain version), with its time, the plain version's, the unfolded tail's
+     and its byte bound;
   4. stream: MEGA R-101 in bf16 at 608x1024 with seeded random weights runs a
      40-frame synthetic video through ``run_video`` (one lane); detections
      must be finite with 300 slots, and every kernel launch count must be
@@ -35,8 +38,9 @@ Phases, each printing its own lines:
      12-40 frames from an in-memory dataset through
      ``compute_on_dataset_lockstep``; every frame must be emitted exactly
      once, detections finite with 300 slots, each step must launch 1 stem
-     pool, 2 "none", 3 "compute" and 2 ROIAlign kernels whatever the lane
-     count (and no "input" or standalone position-bias kernel), and the
+     pool, 2 "none", 3 "compute", 2 ROIAlign kernels and 99 bottleneck
+     epilogues (the C4 body's 90, res5's 9) whatever the lane count (and no
+     "input" or standalone position-bias kernel), and the
      first 15 steps re-run from fresh carries must be bit-identical; prints
      ms/step, frames/s and peak memory;
   7. position-bias paths: ``RelationAttention(pos_emb=...)`` (mode "input")
@@ -54,7 +58,8 @@ Phases, each printing its own lines:
      through ``compute_on_dataset_lockstep``; every frame must be emitted
      exactly once with finite boxes, each step must launch exactly RDN's 1
      stem pool, 4 "compute" and 1 ROIAlign kernels (FGFA and DFF: 1
-     ROIAlign), and the
+     ROIAlign) and 99 bottleneck epilogues (DFF's non-key steps: res5's
+     9), and the
      first 15 steps re-run from fresh carries must be bit-identical; prints
      ms/step, frames/s and peak memory;
   10. base: the single-frame detector's ``forward_test`` on 4 packed frames
@@ -130,8 +135,9 @@ Phases, each printing its own lines:
      and the rest;
   19. gn: ``base_R_50`` with group norm (bf16, packed frames) against
      itself in f32 on RGB frames, and its f32 packed route against the
-     canonical one; no stem pool launch; an R-101 32x8d C4 body
-     (``build_resnet_c4``) timed;
+     canonical one; no stem pool launch and no bottleneck epilogue; an
+     R-101 32x8d C4 body (``build_resnet_c4``, frozen BN, grouped 3x3
+     convolutions) timed, 90 epilogues a pass;
   20. native loader, information only: whether ``data/native_loader.py``
      builds here (g++, libjpeg) and why not; if it does, ``load_batch``
      equal to ``load_frame`` frame by frame and both timed beside the PIL
@@ -247,17 +253,25 @@ TRAIN_ATTENTION = {
 # kernel is listed, so that its 0 is measured too
 _NO_KERNEL = {"stem_pool_packed": 0, "flash_relation_attention": 0,
               "flash_relation_attention_pos": 0, "flash_relation_attention_bias": 0,
-              "fused_position_bias": 0, "roi_align": 0}
+              "fused_position_bias": 0, "roi_align": 0, "bottleneck_epilogue": 0}
+# bottleneck epilogues of one pass of a bf16 frozen-BN body in eval mode,
+# three a block: the R-101 C4 body's 30 blocks, a res5 head's 3, an R-50
+# FPN body's 16 (training, f32 and group norm launch none)
+EPI_C4, EPI_RES5, EPI_R50_FPN = 90, 9, 48
+EPI_PASS = EPI_C4 + EPI_RES5
 # ROIAlign: MEGA pools the key frames' and the global frames' proposals (the
 # refs are the key set's first 75), RDN the key set, FGFA and DFF the box
-# head's proposals
+# head's proposals; every method runs the C4 body once a step (over all its
+# frames) and res5 once, but DFF's non-key steps run res5 alone
 PER_STEP = {
     "mega": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention=2,
-                 flash_relation_attention_pos=3, roi_align=2),
-    "rdn": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention_pos=4, roi_align=1),
-    "fgfa": dict(_NO_KERNEL, roi_align=1),
-    "dff": dict(_NO_KERNEL, roi_align=1),
+                 flash_relation_attention_pos=3, roi_align=2, bottleneck_epilogue=EPI_PASS),
+    "rdn": dict(_NO_KERNEL, stem_pool_packed=1, flash_relation_attention_pos=4, roi_align=1,
+                bottleneck_epilogue=EPI_PASS),
+    "fgfa": dict(_NO_KERNEL, roi_align=1, bottleneck_epilogue=EPI_PASS),
+    "dff": dict(_NO_KERNEL, roi_align=1, bottleneck_epilogue=EPI_PASS),
 }
+DFF_NON_KEY_STEP = dict(PER_STEP["dff"], bottleneck_epilogue=EPI_RES5)
 # a training iteration: the canonical stem on RGB frames (no stem pool),
 # the position bias in plain f32 into mode "input", no "compute"; ROIAlign
 # of the global, memory, key and local pools
@@ -488,6 +502,14 @@ ROI_ALIGN_CALLS = (("mega key", LANES, 300, (38, 64, 2048), 7, True),
                    ("mega global", LANES, 75, (38, 64, 2048), 7, True),
                    ("fgfa", METHOD_LANES, 300, (38, 64, 2048), 7, False))
 ROI_ALIGN_RTOL = 1e-5
+# the bottleneck epilogue at MEGA's 24 maps a step (phase 3): (label, map
+# (N, C, H, W), with the residual); layer3's last pass is the row of the
+# kernel table
+EPILOGUE_CALLS = (("layer3 out", (2 * LANES, 1024, 38, 64), True),
+                  ("layer3 mid", (2 * LANES, 256, 38, 64), False),
+                  ("layer1 out", (2 * LANES, 256, 152, 256), True),
+                  ("layer2 out", (2 * LANES, 512, 76, 128), True),
+                  ("res5 out", (2 * LANES, 2048, 38, 64), True))
 
 
 def _roi_align_rows(gen, dev):
@@ -535,6 +557,49 @@ def _roi_align_rows(gen, dev):
         rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                            **bound)
         del feat, rois, got, want, out
+    return rows
+
+
+def _epilogue_rows(gen, dev):
+    """Each EPILOGUE_CALLS call in bf16: the kernel bit for bit its plain
+    version; kernel and plain ms, the unfolded tail it replaces (FrozenBN's
+    product and sum in bf16, relu, the residual add and relu) and the bound:
+    a and r read once and y written once."""
+    import torch
+    from mega_pytorch_tpu_torch.ops.kernels import bottleneck_epilogue as be
+
+    rows = {}
+    bf16 = torch.bfloat16
+    for label, shape, residual in EPILOGUE_CALLS:
+        def draw():
+            x = torch.randn(shape, generator=gen, device=dev) * 2
+            return x.to(bf16).contiguous(memory_format=torch.channels_last)
+
+        a, r = draw(), draw() if residual else None
+        shift = torch.randn(shape[1], generator=gen, device=dev)
+        scale = (torch.rand(shape[1], generator=gen, device=dev) + 0.5).to(bf16)
+        shift16 = shift.to(bf16)
+        got = be.bottleneck_epilogue(a, shift, r)
+        exact = torch.equal(got, be.bottleneck_epilogue_reference(a, shift, r))
+
+        def unfolded():
+            y = a * scale.view(-1, 1, 1) + shift16.view(-1, 1, 1)
+            return torch.relu(torch.relu(y) if r is None else y + r)
+
+        ms, plain_ms = _time_pair(lambda: be.bottleneck_epilogue_reference(a, shift, r),
+                                  lambda: be.bottleneck_epilogue(a, shift, r), repeats=9)
+        unfolded_ms, _ = _time_pair(lambda: be.bottleneck_epilogue(a, shift, r), unfolded,
+                                    repeats=9)
+        bound = _bound(_nbytes(a, got) + (_nbytes(r) if residual else 0))
+        print(f"[kernels] bottleneck_epilogue {label} {shape} bf16, residual {residual}: "
+              f"exact {exact}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the unfolded "
+              f"tail {unfolded_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), share {bound['bound_ms'] / ms:.3f}")
+        if not exact:
+            _fail(f"bottleneck_epilogue {label} is not bit-exact with its plain version")
+        rows[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, unfolded_ms=unfolded_ms,
+                           library_ms=None, **bound)
+        del a, r, got
     return rows
 
 
@@ -768,6 +833,8 @@ def phase_kernels():
     del x, bias
     roi_rows = _roi_align_rows(gen, dev)
     rows["roi_align"] = dict(roi_rows["mega key"], calls=roi_rows)
+    epilogue_rows = _epilogue_rows(gen, dev)
+    rows["bottleneck_epilogue"] = dict(epilogue_rows["layer3 out"], calls=epilogue_rows)
     return rows
 
 
@@ -842,6 +909,7 @@ def phase_stream():
     from mega_pytorch_tpu_torch.models.detectors.mega import build_mega_flagship
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
     from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+    from mega_pytorch_tpu_torch.ops.kernels.bottleneck_epilogue import bottleneck_epilogue
     from mega_pytorch_tpu_torch.ops.roi_align import roi_align
 
     t0 = time.perf_counter()
@@ -853,7 +921,7 @@ def phase_stream():
           f"{time.perf_counter() - t0:.1f} s; frames {frames.shape} uint8")
 
     kernels = (sp.stem_pool_packed, ra.flash_relation_attention,
-               ra.flash_relation_attention_pos, roi_align)
+               ra.flash_relation_attention_pos, roi_align, bottleneck_epilogue)
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
@@ -868,7 +936,8 @@ def phase_stream():
     launches = {k.__name__: k.launches for k in kernels}
     steps = len(outs)
     expect = {"stem_pool_packed": steps, "flash_relation_attention": 2 * steps,
-              "flash_relation_attention_pos": 3 * steps, "roi_align": 2 * steps}
+              "flash_relation_attention_pos": 3 * steps, "roi_align": 2 * steps,
+              "bottleneck_epilogue": EPI_PASS * steps}
     print(f"[stream] steps {steps} (40 frames + 12 warm-up); launches {launches}; "
           f"expected {expect}")
     if launches != expect:
@@ -963,11 +1032,12 @@ def _kernels():
     from mega_pytorch_tpu_torch.ops.kernels import position_bias as pb
     from mega_pytorch_tpu_torch.ops.kernels import relation_attention as ra
     from mega_pytorch_tpu_torch.ops.kernels import stem_pool as sp
+    from mega_pytorch_tpu_torch.ops.kernels.bottleneck_epilogue import bottleneck_epilogue
     from mega_pytorch_tpu_torch.ops.roi_align import roi_align
 
     return (sp.stem_pool_packed, ra.flash_relation_attention,
             ra.flash_relation_attention_pos, ra.flash_relation_attention_bias,
-            pb.fused_position_bias, roi_align)
+            pb.fused_position_bias, roi_align, bottleneck_epilogue)
 
 
 def run_lanes(model, ds, lanes, dev, run=None, tag=None):
@@ -990,8 +1060,9 @@ def run_lanes(model, ds, lanes, dev, run=None, tag=None):
     method = model.v.method
     tag = tag or f"lanes {method}"
     per_step = dict(PER_STEP[method])
+    non_key = dict(DFF_NON_KEY_STEP)
     if dev.type != "cuda":  # plain versions: no launches
-        per_step = dict.fromkeys(per_step, 0)
+        per_step, non_key = dict.fromkeys(per_step, 0), dict.fromkeys(non_key, 0)
     slots = model.c.detections_per_img
     record = dict(ms=[], kinds=[], emitted=[], replay=[], bad_counts=[], first=[],
                   replay_on=True, last=None,
@@ -1013,7 +1084,7 @@ def run_lanes(model, ds, lanes, dev, run=None, tag=None):
             record["kinds"].append(kind)
             record["emitted"].append(0)  # counted by the engine's _extract
             delta = {k.__name__: k.launches - before[k.__name__] for k in kernels}
-            if delta != per_step:
+            if delta != (non_key if kind == "non-key" else per_step):
                 record["bad_counts"].append((len(record["ms"]) - 1, delta))
             # a canvas group of fewer videos than lanes runs fewer lanes
             if not (dets.boxes.shape[0] <= lanes and tuple(dets.boxes.shape[1:]) == (slots, 4)):
@@ -1064,7 +1135,8 @@ def run_lanes(model, ds, lanes, dev, run=None, tag=None):
     steps = len(record["ms"])
     n_frames = len(ds.image_set_index)
     print(f"[{tag}] {steps} steps of {lanes} lanes; launches {launches}; per "
-          f"step {per_step} expected, steps that differ: {record['bad_counts'][:3]}")
+          f"step {per_step} expected (DFF's non-key steps {non_key}), steps that differ: "
+          f"{record['bad_counts'][:3]}")
     if record["bad_counts"] or steps == 0:
         _fail(f"{method}: lockstep kernel launch counts per step differ from {per_step}")
     once = bool((ds.info_calls == 1).all()) and sorted(results) == list(range(n_frames))
@@ -1200,7 +1272,8 @@ def phase_base(smi):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
     launches = {k.__name__: k.launches for k in kernels}
-    expect = dict(_NO_KERNEL, stem_pool_packed=calls, roi_align=calls)
+    expect = dict(_NO_KERNEL, stem_pool_packed=calls, roi_align=calls,
+                  bottleneck_epilogue=EPI_PASS * calls)
     finite = bool(torch.isfinite(dets.boxes).all() and torch.isfinite(dets.scores).all())
     print(f"[base] forward_test on {METHOD_LANES} packed frames x {calls} calls: "
           f"launches {launches} (expected {expect}); detections "
@@ -1452,9 +1525,10 @@ def run_eval_path(dev, cfg, base_cfg, frame_hw, lengths, portrait, lanes, smi, t
         if sorted(base_preds) != video or not finite:
             _fail(f"{tag}: the base method's serial run did not predict every frame")
         if base_launches != dict(_NO_KERNEL, stem_pool_packed=len(video),
-                                 roi_align=len(video)):
-            _fail(f"{tag}: the serial base run launched {base_launches}, not one stem pool "
-                  f"and one ROIAlign a frame")
+                                 roi_align=len(video),
+                                 bottleneck_epilogue=EPI_PASS * len(video)):
+            _fail(f"{tag}: the serial base run launched {base_launches}, not one stem pool, "
+                  f"one ROIAlign and a body and res5 pass of epilogues a frame")
         del base
     return launches, per_step, lane["ms_per_step"], base_launches
 
@@ -2026,7 +2100,8 @@ def phase_tta(smi):
         p["boxes"][:, [0, 2]].max() <= w + 1 and p["boxes"][:, [1, 3]].max() <= h + 1
         and p["boxes"].min() >= -1)) for p in preds.values())
     expect = dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS * TTA_FRAMES,
-                  roi_align=TTA_RUNS * TTA_FRAMES)
+                  roi_align=TTA_RUNS * TTA_FRAMES,
+                  bottleneck_epilogue=EPI_PASS * TTA_RUNS * TTA_FRAMES)
     warm = {k: statistics.median(f[k] for f in frames[1:]) for k in ("ms", "prep_ms", "runs_ms")}
     rest = warm["ms"] - warm["prep_ms"] - warm["runs_ms"]
     per_frame = "; ".join(f"{f['ms']:.1f} ms (preprocessing {f['prep_ms']:.1f}, runs "
@@ -2049,7 +2124,8 @@ def phase_tta(smi):
         _fail(f"tta: launches {launches} != {expect}, or not {TTA_RUNS} stem pools in "
               f"every frame ({[f['stem_pools'] for f in frames]})")
     torch.cuda.empty_cache()
-    return launches, dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS, roi_align=TTA_RUNS), warm["ms"]
+    return launches, dict(_NO_KERNEL, stem_pool_packed=TTA_RUNS, roi_align=TTA_RUNS,
+                          bottleneck_epilogue=EPI_PASS * TTA_RUNS), warm["ms"]
 
 
 def phase_demo(smi):
@@ -2145,8 +2221,11 @@ def phase_demo(smi):
     if not same:
         _fail("demo: detections differ from StreamingInferencer's")
     path_kernels = ("stem_pool_packed", "flash_relation_attention",
-                    "flash_relation_attention_pos", "roi_align")
+                    "flash_relation_attention_pos", "roi_align", "bottleneck_epilogue")
+    # a body pass of epilogues with each stem pool, and whole res5 passes
+    res5_epilogues = launches["bottleneck_epilogue"] - EPI_C4 * launches["stem_pool_packed"]
     if (not all(launches[k] > 0 for k in path_kernels)
+            or res5_epilogues <= 0 or res5_epilogues % EPI_RES5
             or launches["flash_relation_attention_bias"] or launches["fused_position_bias"]
             or launches["flash_relation_attention"] % DEMO_FRAMES
             or launches["flash_relation_attention_pos"] % DEMO_FRAMES):
@@ -2234,6 +2313,11 @@ def phase_gn(smi):
             m.cast_weights_()
     body.eval().requires_grad_(False)
     ms = []
+    from mega_pytorch_tpu_torch.ops.kernels.bottleneck_epilogue import (
+        bottleneck_epilogue as epilogue,
+    )
+
+    epilogue.launches = 0
     with torch.inference_mode():
         for _ in range(6):
             torch.cuda.synchronize()
@@ -2244,10 +2328,12 @@ def phase_gn(smi):
     print(f"[gn] build_resnet_c4 R-101 32x8d (NUM_GROUPS 32, WIDTH_PER_GROUP 8, bf16, "
           f"frozen BN): C4 map {tuple(c4.shape)} finite {bool(torch.isfinite(c4).all())}, "
           f"median {statistics.median(ms[1:]):.2f} ms a packed {CANVAS[0]}x{CANVAS[1]} frame "
-          f"(first call {ms[0]:.1f} ms); {smi}")
+          f"(first call {ms[0]:.1f} ms), bottleneck epilogues {epilogue.launches}; {smi}")
     if tuple(c4.shape) != (1, CANVAS[0] // 16, CANVAS[1] // 16, 1024) or not bool(
             torch.isfinite(c4).all()):
         _fail("gn: the 32x8d C4 body's output is wrong")
+    if epilogue.launches != 6 * EPI_C4:
+        _fail(f"gn: the 32x8d C4 body launched {epilogue.launches} epilogues in 6 passes")
     del body
     torch.cuda.empty_cache()
     return launches
@@ -2689,11 +2775,13 @@ def phase_zoo(smi):
               f"call {fpn_launches}; RetinaNet levels {[tuple(f.shape[1:3]) for f in levels]}, "
               f"kept {kept} of 100 an image, boxes inside the image {inside}; all bf16 outputs "
               f"finite {finite}; mask loss {loss.item():.4f}")
-        if fpn_launches != dict(_NO_KERNEL, stem_pool_packed=1) or shapes != want:
+        if (fpn_launches != dict(_NO_KERNEL, stem_pool_packed=1,
+                                 bottleneck_epilogue=EPI_R50_FPN) or shapes != want):
             _fail(f"zoo: R-50-FPN launched {fpn_launches} or gave {shapes}")
         # ROIAlign: the mask head for mask_probs and mask_losses, the targets
         # of each frame's instance masks, the keypoint head
-        zoo_launches = dict(_NO_KERNEL, stem_pool_packed=2, roi_align=3 + ZOO_FRAMES)
+        zoo_launches = dict(_NO_KERNEL, stem_pool_packed=2, roi_align=3 + ZOO_FRAMES,
+                            bottleneck_epilogue=2 * EPI_R50_FPN)
         if not (finite and inside) or launches != zoo_launches:
             _fail(f"zoo: outputs not finite, boxes outside the image, or launches {launches}")
 
@@ -2910,7 +2998,8 @@ def _phase_classic_head(dev, pickle_path, kernels, smi):
           f"{body_ms:.3f}), peak {peak:.0f} MB ({scratch:.0f} MB above the weights and "
           f"inputs); outputs {shapes}, finite {finite}; launches {launches}; {smi}")
     if (shapes != want or not finite
-            or launches != dict(_NO_KERNEL, stem_pool_packed=1, roi_align=1)):
+            or launches != dict(_NO_KERNEL, stem_pool_packed=1, roi_align=1,
+                                bottleneck_epilogue=EPI_PASS)):
         _fail(f"classic: outputs {shapes} (want {want}), finite {finite}, launches {launches}")
     del head, out
     rois_small = torch.from_numpy(_zoo_boxes(rs, 1, 16, *ZOO_SMALL, lo=8.0, hi=100.0))
@@ -3144,6 +3233,9 @@ def main():
             "mega_pytorch_tpu/ops/pallas/position_bias.py:112"),
         "roi_align": ("cuda", "mega_pytorch_tpu_torch/csrc/roi_align.cu",
                       "none (mega_pytorch_tpu/ops/roi_align.py is plain JAX)"),
+        "bottleneck_epilogue": ("cuda", "mega_pytorch_tpu_torch/csrc/bottleneck_epilogue.cu",
+                                "none (XLA fuses the JAX package's FrozenBN, relu and "
+                                "residual add into its convolutions)"),
     }
     # launches: each path's run counts from 0 and is read just after it: the
     # MEGA lanes run (phase 6), the methods (phase 9), the base detector

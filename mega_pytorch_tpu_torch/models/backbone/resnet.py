@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.kernels.bottleneck_epilogue import bottleneck_epilogue
 from ...ops.kernels.stem_pool import stem_pool_packed
 from ...utils.profiler import annotate
 from ..layers import DTYPES, Conv, FrozenBatchNorm2d, GroupNorm, lecun_normal_
@@ -58,10 +59,32 @@ def norm_of(cfg) -> str:
 
 
 class Bottleneck(nn.Module):
+    """conv1 (1x1) → conv2 (3x3, grouped, dilated) → conv3 (1x1), each with
+    its norm, relu between, the identity or the downsample (1x1 conv and
+    norm) added before the last relu.
+
+    Under frozen BN, in eval mode and in a compute dtype narrower than f32
+    (bf16, as served), the block runs folded: each convolution with weights
+    ``W * scale`` (the f32 product rounded to the compute dtype once) and no
+    bias, then one ``bottleneck_epilogue`` pass, ``relu(a + shift)``, the
+    last one ``relu(a + shift3 + shift_down + r)`` with the identity or the
+    folded downsample's output as ``r``. The folded weights and f32 shifts
+    are buffers outside the state dict, made when the weights are cast
+    (``cast_weights_``) or loaded in eval mode and on each return to eval
+    mode; train mode drops them and runs the unfolded convolutions and
+    norms, whose weights take the gradients. GN blocks and f32 blocks
+    always run unfolded: in f32 the fold saves no rounding, and the f32
+    models are the form the port is held to the JAX package in, op for op
+    (the fold's reordered f32 roundings alone move a tiny MEGA's carried
+    boxes by 1.3e-3 px against its 1e-3 px parity bound)."""
+
+    FOLDED = ("w1", "w2", "w3", "w_down", "shift1", "shift2", "shift3")
+
     def __init__(self, in_channels, bottleneck_channels, out_channels, stride=1,
                  stride_in_1x1=True, dilation=1, dtype=torch.float32,
                  device=None, num_groups=1, norm="frozen_bn"):
         super().__init__()
+        self.folds = norm != "gn" and dtype != torch.float32
         stride = 1 if dilation > 1 else stride
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         kw = dict(bias=False, dtype=dtype, device=device)
@@ -79,8 +102,49 @@ class Bottleneck(nn.Module):
         self.bn2 = make_norm(norm, bottleneck_channels, dtype, device)
         self.conv3 = Conv(bottleneck_channels, out_channels, 1, **kw)
         self.bn3 = make_norm(norm, out_channels, dtype, device)
+        if self.folds:
+            for name in self.FOLDED:
+                self.register_buffer(name, torch.empty(0, device=device), persistent=False)
+            self.register_load_state_dict_post_hook(
+                lambda m, _keys: m._drop() if m.training else m._fold())
+
+    @torch.no_grad()
+    def _fold(self) -> None:
+        def fold(conv, bn):
+            scale, shift = bn.affine_f32()
+            w = conv.weight.float() * scale.float().view(-1, 1, 1, 1)
+            return w.to(conv.dtype).contiguous(memory_format=torch.channels_last), shift.float()
+
+        self.w1, self.shift1 = fold(self.conv1, self.bn1)
+        self.w2, self.shift2 = fold(self.conv2, self.bn2)
+        self.w3, self.shift3 = fold(self.conv3, self.bn3)
+        if self.downsample_conv is not None:
+            self.w_down, shift_down = fold(self.downsample_conv, self.downsample_bn)
+            self.shift3 = self.shift3 + shift_down
+
+    def _drop(self) -> None:
+        for name in self.FOLDED:
+            setattr(self, name, self.w1.new_empty(0))
+
+    def cast_weights_(self) -> None:
+        """Fold from the weights as they are before the convolutions store
+        theirs in the compute dtype (``modules()`` reaches the block first),
+        so each folded weight is rounded once."""
+        if self.folds:
+            self._fold()
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.folds:
+            if mode:
+                self._drop()  # training changes the weights
+            elif self.w1.numel() == 0:
+                self._fold()
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+        if self.folds and not self.training:
+            return self._forward_folded(x)
         identity = x
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
@@ -88,6 +152,14 @@ class Bottleneck(nn.Module):
         out = torch.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         return torch.relu(out + identity)
+
+    def _forward_folded(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x.to(self.conv3.dtype).contiguous(memory_format=torch.channels_last)
+        if self.downsample_conv is not None:
+            identity = self.downsample_conv(x, self.w_down)
+        out = bottleneck_epilogue(self.conv1(x, self.w1), self.shift1)
+        out = bottleneck_epilogue(self.conv2(out, self.w2), self.shift2)
+        return bottleneck_epilogue(self.conv3(out, self.w3), self.shift3, identity)
 
 
 # 7x7 kernel offset u (padding 3, stride 2) → (4-tap offset d, input phase a)

@@ -96,10 +96,13 @@ class Conv(_Weighted):
         self.groups = groups
         self.dtype, self.init_std, self.bias_init = dtype, init_std, bias_init
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+        """``weight``: in place of the stored one (a bottleneck's folded
+        weight, of the same shape)."""
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+        weight = self.weight if weight is None else weight
+        return F.conv2d(x.to(dt), weight.to(dt), bias, self.stride,
                         self.padding, self.dilation, self.groups)
 
 

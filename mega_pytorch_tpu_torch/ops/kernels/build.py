@@ -42,6 +42,7 @@ SIGNATURES = {
     "roi_align_launch": (
         _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _F, _I, _I, _I, _I, _P,
     ),
+    "bottleneck_epilogue_launch": (_P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 

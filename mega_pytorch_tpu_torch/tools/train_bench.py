@@ -21,7 +21,10 @@ def calibrate_frozen_bn(model, frames):
     starts from: random weights under identity statistics grow the
     activations through R-101's 33 residual blocks to where the first
     losses are ~40 and the second SGD step overflows, in the JAX package as
-    in the port (``tests/r101_identity_bn_witness.py``)."""
+    in the port (``tests/r101_identity_bn_witness.py``). The pass runs in
+    train mode, where the bottlenecks call their norms (eval mode runs them
+    folded into the convolutions); the model's mode is restored after, which
+    folds the calibrated statistics into an eval model."""
     def calibrate(module, inputs):
         x = inputs[0].float()
         module.running_mean.copy_(x.mean((0, 2, 3)))
@@ -30,10 +33,13 @@ def calibrate_frozen_bn(model, frames):
 
     hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
              if isinstance(m, FrozenBatchNorm2d)]
+    training = model.training
     try:
         with torch.no_grad():
+            model.train()
             model.extractor.enhance_features(model.backbone(frames))
     finally:
+        model.train(training)
         for h in hooks:
             h.remove()
     model.backbone.stem.refresh()

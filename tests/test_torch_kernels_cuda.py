@@ -784,3 +784,152 @@ def test_group_norm_keeps_channels_last(cuda):
     y = gn(x)
     assert y.is_contiguous(memory_format=torch.channels_last)
     assert y.permute(0, 2, 3, 1).stride(-1) == 1
+
+
+# -- bottleneck epilogue -----------------------------------------------------------
+# MEGA's 24 maps a step (12 lanes x key and global frame, 608x1024 canvases):
+# each stage's bottleneck width (conv1 and conv2 outputs, no residual) and
+# output width (conv3, with the residual), (N, C, H, W)
+EPILOGUE_SHAPES = {
+    "layer1 mid": (24, 64, 152, 256), "layer1 out": (24, 256, 152, 256),
+    "layer2 mid": (24, 128, 76, 128), "layer2 out": (24, 512, 76, 128),
+    "layer3 mid": (24, 256, 38, 64), "layer3 out": (24, 1024, 38, 64),
+    "res5 mid": (24, 512, 38, 64), "res5 out": (24, 2048, 38, 64),
+    "ragged": (3, 24, 5, 7),
+}
+
+
+def _epilogue_inputs(dev, shape, dtype, residual, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def map_():
+        x = torch.randn(shape, generator=gen, device=dev) * 2
+        return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    shift = torch.randn(shape[1], generator=gen, device=dev)
+    return map_(), shift, map_() if residual else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("stage", list(EPILOGUE_SHAPES))
+def test_bottleneck_epilogue_kernel_exact(cuda, stage, residual):
+    """The kernel against its plain version bit for bit (the same f32 sums
+    in the same order, one rounding) at each stage's bf16 shapes."""
+    from mega_pytorch_tpu_torch.ops.kernels import bottleneck_epilogue as be
+
+    a, shift, r = _epilogue_inputs(cuda, EPILOGUE_SHAPES[stage], torch.bfloat16, residual)
+    before = be.bottleneck_epilogue.launches
+    got = be.bottleneck_epilogue(a, shift, r)
+    assert be.bottleneck_epilogue.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == a.dtype
+    assert torch.equal(got, be.bottleneck_epilogue_reference(a, shift, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", [(2, 256, 19, 32), (3, 12, 5, 7), (1, 4, 1, 1)])
+def test_bottleneck_epilogue_kernel_exact_f32(cuda, shape, residual):
+    from mega_pytorch_tpu_torch.ops.kernels import bottleneck_epilogue as be
+
+    a, shift, r = _epilogue_inputs(cuda, shape, torch.float32, residual, seed=1)
+    assert torch.equal(be.bottleneck_epilogue(a, shift, r),
+                       be.bottleneck_epilogue_reference(a, shift, r))
+
+
+@pytest.mark.cuda
+def test_bottleneck_epilogue_kernel_refuses(cuda):
+    """Unaligned channel counts, NCHW memory, a residual unlike ``a``, a
+    shift not f32 (C,), a misaligned pointer and operands that require
+    grad raise; nothing is launched."""
+    from mega_pytorch_tpu_torch.ops.kernels import bottleneck_epilogue as be
+
+    a, shift, r = _epilogue_inputs(cuda, (2, 64, 9, 11), torch.bfloat16, True)
+    odd, odd_shift, _ = _epilogue_inputs(cuda, (2, 12, 9, 11), torch.bfloat16, False)
+    before = be.bottleneck_epilogue.launches
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        be.bottleneck_epilogue(odd, odd_shift)
+    with pytest.raises(ValueError, match="channels_last"):
+        be.bottleneck_epilogue(a.contiguous(), shift)
+    with pytest.raises(ValueError, match="residual"):
+        be.bottleneck_epilogue(a, shift, r.contiguous())
+    with pytest.raises(ValueError, match="residual"):
+        be.bottleneck_epilogue(a, shift, r.float())
+    with pytest.raises(ValueError, match="shift"):
+        be.bottleneck_epilogue(a, shift.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shift"):
+        be.bottleneck_epilogue(a, shift[:32])
+    flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=cuda)
+    shifted = flat[1:].view(2, 9, 11, 64).permute(0, 3, 1, 2)  # 2 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        be.bottleneck_epilogue(shifted, shift)
+    with pytest.raises(ValueError, match="inference-only"):
+        be.bottleneck_epilogue(a.float().requires_grad_(), shift)
+    assert be.bottleneck_epilogue.launches == before
+
+
+def _r101(dev, dtype=torch.bfloat16):
+    from mega_pytorch_tpu_torch.models.backbone.resnet import ResNetC4, ResNetRes5Head
+    from mega_pytorch_tpu_torch.models.layers import init_module_
+
+    gen = torch.Generator(dev).manual_seed(0)
+    body = init_module_(ResNetC4("R-101", dtype=dtype, device=dev), gen, cast=True)
+    head = init_module_(ResNetRes5Head("R-101", dtype=dtype, device=dev), gen, cast=True)
+    return body, head
+
+
+@pytest.mark.cuda
+def test_bottleneck_epilogue_launches_on_a_c4_and_res5_pass(cuda):
+    """An R-101 C4 body and res5 head in bf16 eval mode launch 30 x 3
+    epilogues inside the ``backbone`` span and 3 x 3 inside ``res5``; in
+    train mode, in f32 and under group norm none."""
+    from mega_pytorch_tpu_torch.models.backbone.resnet import ResNetC4
+    from mega_pytorch_tpu_torch.ops.kernels import bottleneck_epilogue as be
+    from mega_pytorch_tpu_torch.utils import profiler
+
+    body, head = _r101(cuda)
+    frames = torch.randn(2, 64, 96, 3, device=cuda)
+    name = "bottleneck.epilogue_launches"
+    with torch.inference_mode(), profiler.recording():
+        head(body(frames))
+    rec = profiler.recorded()
+    assert rec["counters"][name] == 99
+    assert rec["counters_by_span"]["backbone"] == {name: 90}
+    assert rec["counters_by_span"]["res5"] == {name: 9}
+    before = be.bottleneck_epilogue.launches
+    body.train()
+    head.train()
+    with torch.no_grad(), profiler.recording():
+        head(body(frames))
+    assert name not in profiler.recorded()["counters"]
+    f32_body, _ = _r101(cuda, torch.float32)
+    gn = ResNetC4("R-50", dtype=torch.bfloat16, device=cuda, norm="gn").eval()
+    for module in (f32_body, gn):
+        with torch.inference_mode(), profiler.recording():
+            module(frames)
+        assert name not in profiler.recorded()["counters"]
+    assert be.bottleneck_epilogue.launches == before
+
+
+@pytest.mark.cuda
+def test_folded_r101_against_f32(cuda):
+    """The folded bf16 R-101 C4 body and res5 head (eval) and the unfolded
+    one (train mode), each against the same weights in f32 (TF32 off): the
+    folded one no further from f32 than 1.5 times the unfolded one (the
+    bound of tests/test_torch_bottleneck_fold.py)."""
+    torch.backends.cudnn.allow_tf32 = False
+    body, head = _r101(cuda)
+    exact = _r101(cuda, torch.float32)
+    frames = torch.randn(2, 64, 96, 3, device=cuda)
+    with torch.inference_mode():
+        want = exact[1](exact[0](frames))
+        folded = head(body(frames))
+        body.train()
+        head.train()
+        unfolded = head(body(frames))
+
+    def rel(got):
+        return float((got.float() - want).abs().max() / want.abs().max())
+
+    assert torch.isfinite(folded.float()).all()
+    assert rel(folded) <= 1.5 * rel(unfolded), (rel(folded), rel(unfolded))
