@@ -40,7 +40,7 @@
 //     planes in 32-byte pieces. What still holds the stores back: with
 //     M = 3750 three plane rows of four start off the 32-byte sector grid,
 //     so most stores leave sectors partial, which the L2 fetches from
-//     device memory first (tools/write_probe.py measures the patterns).
+//     device memory first.
 //     The 67 KB of stages leave 2 blocks (16 warps) an SM.
 
 #include <cuda_fp16.h>

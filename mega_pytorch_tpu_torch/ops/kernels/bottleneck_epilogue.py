@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import torch
 
-from ...utils import profiler
 from .build import check_launch, load_library
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -82,15 +81,13 @@ def bottleneck_epilogue(a: torch.Tensor, shift: torch.Tensor,
                         residual: torch.Tensor | None = None) -> torch.Tensor:
     """``relu(a + shift (+ residual))`` on (N, C, H, W) maps. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (counted in
-    ``bottleneck_epilogue.launches`` and the profiler counter
-    ``bottleneck.epilogue_launches``), which raises on what it does not
+    ``bottleneck_epilogue.launches``), which raises on what it does not
     take."""
     if a.device.type == "cpu":
         return bottleneck_epilogue_reference(a, shift, residual)
     check_kernel_operands(a, shift, residual)
     y = _launch(a, shift, residual)
     bottleneck_epilogue.launches += 1
-    profiler.count("bottleneck.epilogue_launches")
     return y
 
 

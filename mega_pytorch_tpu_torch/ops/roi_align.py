@@ -10,10 +10,10 @@ over lanes l, each with its own map and ROIs, accumulated in f32 and
 rounded once to ``out_dtype``.
 
 On CUDA tensors ``roi_align`` launches one hand-written gather kernel,
-``csrc/roi_align.cu``, once a call (``roi_align.launches``, and the profiler
-counter ``roi_align.launches``). It replaces no TPU kernel: the JAX
-package's ROIAlign is plain JAX, and the kernel stands where the plain
-version's dense weights and einsums ran at a few percent of the card. It is
+``csrc/roi_align.cu``, once a call (counted in ``roi_align.launches``). It
+replaces no TPU kernel: the JAX package's ROIAlign is plain JAX, and the
+kernel stands where the plain version's dense weights and einsums ran at a
+few percent of the card. It is
 bound by its output bytes; it reads the map as stored (f32 or bf16) and
 builds each ROI's taps in shared memory (design in its source note). A call
 whose features or ROIs require grad goes through ``ROIAlignFunction``,
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import profiler
 from ..utils.profiler import annotate
 from .kernels.build import check_launch, load_library
 from .kernels.operators import kernel_op
@@ -163,7 +162,6 @@ def _impl(features, rois, spatial_scale, pooled_height, pooled_width, sampling_r
     check_kernel_operands(features, rois, out_dtype)
     out = _launch(features, rois, *args)
     roi_align.launches += 1
-    profiler.count("roi_align.launches")
     return out
 
 

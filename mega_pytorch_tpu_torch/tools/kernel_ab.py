@@ -5,8 +5,7 @@ process.
 
 DIR is an unpacked checkout of the other commit (``git archive``). Both
 trees' ``csrc`` are built into their own libraries and called through the
-wrappers' launch functions on the same inputs (``tools/kernel_bench``, as
-``chip_smoke.py`` makes them):
+wrappers' launch functions on the same inputs (``_attention_inputs``):
 
 - the stem pool at the path's shapes (2, 4 and 24 frames of (152, 256, 256)
   bf16, 2 frames f32): the two libraries' outputs must be bit-identical (the
@@ -32,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -42,12 +42,70 @@ from ..ops.kernels import relation_attention as ra
 from ..ops.kernels import stem_pool as sp
 from ..ops.kernels.build import build_library, load_library
 from ..ops.kernels.position_bias import kernel_params
-from .kernel_bench import attention_inputs, per_lane, time_alternating
 
+CANVAS = (608, 1024)  # the flagship's (height, width)
 STAGES = (("stage 0", 675, 3750), ("stage 1", 675, 750), ("stage 2", 300, 750))
 STEM_SHAPES = ((2, torch.bfloat16), (2, torch.float32), (4, torch.bfloat16),
                (24, torch.bfloat16))  # frames: B=1, RDN's 4 lanes, MEGA's 12
 RTOL_BIAS, ATOL_BIAS = 5e-3, 6e-3  # fused_position_bias in weight space
+
+
+def _attention_inputs(gen, b, n, m, dev):
+    """q, k, v (bf16), uk at the scale of q.k, 80 % valid refs, and boxes of
+    16-316 pixels on the flagship's canvas for rois and refs, with Wg and
+    its bias, all drawn from ``gen`` in a fixed order."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def boxes(count):
+        ctr = torch.rand(b, count, 2, generator=gen, device=dev) * torch.tensor(
+            [CANVAS[1], CANVAS[0]], device=dev)
+        wh = 16 + torch.rand(b, count, 2, generator=gen, device=dev) * 300
+        return torch.cat([ctr - wh / 2, ctr + wh / 2], -1).contiguous()
+
+    bf = torch.bfloat16
+    return dict(
+        q=randn(b, 16, n, 64).to(bf), k=randn(b, 16, m, 64).to(bf),
+        v=randn(b, 16, m, 64).to(bf), uk=randn(b, 16, m, scale=8.0),  # as q.k
+        valid=torch.rand(b, m, generator=gen, device=dev) > 0.2,
+        rois=boxes(n), refs=boxes(m),
+        wk=randn(64, 16, scale=0.05),
+        wb=torch.rand(16, generator=gen, device=dev) * 0.1,
+    )
+
+
+def _per_lane(fn, args, b):
+    """fn over each lane of a B-lane call's arguments, concatenated (the
+    plain versions at 12 lanes would hold several GB at once)."""
+    def lane(t, i):
+        return t[i:i + 1] if t.dim() > 1 and t.shape[0] == b else t
+    return torch.cat([fn(*[lane(t, i) for t in args]) for i in range(b)])
+
+
+def _time_alternating(fns, repeats, inner=10):
+    """Median ms per call of each function: CUDA events around ``inner``
+    back-to-back calls, after one warm-up call of each, the functions taking
+    turns in an order that reverses every repeat."""
+    def once(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / inner
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in range(repeats):
+        for j in (order if i % 2 == 0 else order[::-1]):
+            times[j].append(once(fns[j]))
+    return [statistics.median(t) for t in times]
+
 
 
 def _attend(lib, x, mode, bias=None):
@@ -96,7 +154,7 @@ def main(argv=None):
             raise SystemExit(f"kernel_ab: {label} differs")
 
     def timed(fn):
-        return time_alternating([lambda lib=lib: fn(lib) for lib in (old.lib, new.lib)],
+        return _time_alternating([lambda lib=lib: fn(lib) for lib in (old.lib, new.lib)],
                                 args.turns)
 
     for frames, dtype in STEM_SHAPES:
@@ -116,10 +174,10 @@ def main(argv=None):
 
     for b in (1, 12):
         for n, m in ((2175, 750), (300, 750)):
-            x = attention_inputs(gen, b, n, m, dev)
+            x = _attention_inputs(gen, b, n, m, dev)
             same(f"none B={b} N={n} M={m}", _attend(old.lib, x, ra.MODE_NONE),
                  _attend(new.lib, x, ra.MODE_NONE))
-        x = attention_inputs(gen, b, 675, 3750, dev)
+        x = _attention_inputs(gen, b, 675, 3750, dev)
         bias = _lane_bias(new.lib, x, kernel_params(x["wk"], x["wb"]))
         same(f"input B={b} N=675 M=3750", _attend(old.lib, x, ra.MODE_INPUT, bias),
              _attend(new.lib, x, ra.MODE_INPUT, bias))
@@ -149,13 +207,13 @@ def main(argv=None):
             del want, out
 
         for label, n, m in STAGES:
-            x = attention_inputs(gen, b, n, m, dev)
+            x = _attention_inputs(gen, b, n, m, dev)
             got = _attend(new.lib, x, ra.MODE_COMPUTE)
             same(f"compute {label} B={b}", _attend(old.lib, x, ra.MODE_COMPUTE), got)
             args_ = (x["q"], x["k"], x["v"], x["uk"], x["rois"], x["refs"], x["wk"],
                      x["wb"], x["valid"])
-            tiled = per_lane(ra.reference_relation_attention_pos_tiled, args_, b)
-            flat = per_lane(ra.reference_relation_attention_pos, args_, b)
+            tiled = _per_lane(ra.reference_relation_attention_pos_tiled, args_, b)
+            flat = _per_lane(ra.reference_relation_attention_pos, args_, b)
             ms_old, ms_new = timed(lambda lib: _attend(lib, x, ra.MODE_COMPUTE))
             row = dict(stage=label, B=b, N=n, M=m, ms_parent=ms_old, ms=ms_new,
                        err_tiled=(got - tiled).abs().max().item(),
@@ -170,7 +228,7 @@ def main(argv=None):
             if label == "stage 0":
                 params = kernel_params(x["wk"], x["wb"])
                 bias = _lane_bias(new.lib, x, params)
-                ms_bias, ms_input = time_alternating(
+                ms_bias, ms_input = _time_alternating(
                     [lambda: _lane_bias(new.lib, x, params, bias),
                      lambda: _attend(new.lib, x, ra.MODE_INPUT, bias)], args.turns)
                 route = dict(B=b, bias_ms=ms_bias, input_ms=ms_input,

@@ -2,7 +2,7 @@
 the repo's ``tools/profile_mfu.py``, with its two modes).
 
     python -m mega_pytorch_tpu_torch.tools.profile_mfu [--lanes 12] \\
-        [--canvas 608x1024] [--iters 8] [--peak-tflops 989] [--out DIR]
+        [--canvas 608x1024] [--iters 8] [--peak-tflops 989]
     python -m mega_pytorch_tpu_torch.tools.profile_mfu --train [--iters 8] ...
 
 The step is the MEGA flagship's lockstep step (``build_mega_flagship``:
@@ -10,14 +10,14 @@ R-101, bf16, s2d(4)-packed frames, seeded random weights) over ``--lanes``
 lanes (12 by default, the port's offline cell; the JAX tool's default is
 4), or with ``--train`` one ``mega_R_101`` training iteration (one sample
 of cur + 2 local, 3 memory and 2 global frames: forward, backward, SGD;
-FrozenBN statistics calibrated as ``profile_stream`` does).
+FrozenBN statistics calibrated on two seeded frames, ``train_bench``).
 
 1. FLOPs of one step, counted by ``torch.utils.flop_counter.FlopCounterMode``:
-   convolutions and matrix products (the fc layers, ROIAlign's two
-   einsums, the attention projections), and every hand-written kernel by
-   the formula registered with its operator (``ops/kernels/operators.py``):
-   twice the multiply-adds of the products its function defines, whoever
-   computes it, so a step counts the same FLOPs on the CPU and on the card.
+   convolutions and matrix products (the fc layers, the attention
+   projections), and every hand-written kernel by the formula registered
+   with its operator (``ops/kernels/operators.py``): twice the
+   multiply-adds of the products its function defines, whoever computes
+   it, so a step counts the same FLOPs on the CPU and on the card.
    On the CPU relation attention runs the module's einsum path, whose
    products are the kernels' formulas; its FLOPs then count as aten work,
    not as kernel work. In training the card's attention backward recomputes
@@ -32,17 +32,10 @@ FrozenBN statistics calibrated as ``profile_stream`` does).
    ``torch.cuda.synchronize()``, after warm-up steps; the median.
 3. achieved TFLOP/s = FLOPs / step time, and the MFU against
    ``--peak-tflops`` (989: the H100 SXM's dense bf16 rate).
-4. device time by kernel family from a ``torch.profiler`` trace of
-   ``--iters`` steps: cuDNN convolutions, GEMMs, each hand-written kernel,
-   NMS (every kernel launched inside the ``nms`` span that
-   ``ops/nms.py:nms`` opens while a profiler records), copies (casts
-   included), elementwise, and the rest, with each family's largest
-   kernels. Families go by kernel name, so a convolution that cuDNN runs
-   as a GEMM kernel counts as a GEMM; the idle share is 1 - busy / the
-   plain step's ms (the profiler's own overhead stretches the traced
-   steps).
 
-Needs a CUDA card; prints a summary and, with ``--out``, writes it as JSON.
+Where a step's device time goes is the benchmark's traced breakdown
+(``benchmark/run.py --trace 1``). Needs a CUDA card; prints a summary and
+the record as one JSON line.
 """
 
 from __future__ import annotations
@@ -51,10 +44,8 @@ import argparse
 import json
 import statistics
 import subprocess
-import tempfile
 import time
 from collections import Counter, defaultdict
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -62,23 +53,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..ops.kernels.operators import SPECIAL_FUNCTIONS
-from . import profile_stream
 
 PEAK_TFLOPS = 989.0  # H100 SXM, dense bf16 (NVIDIA's data sheet, 700 W)
-CANVAS = profile_stream.CANVAS
-DEVICE_CATS = profile_stream.DEVICE_CATS
-# kernel family of a device kernel, by the first pattern in its name
-HAND_WRITTEN = (("stem_pool_kernel", "stem_pool_packed"),
-                ("relation_attention_pos_tc_kernel", "relation attention \"compute\""),
-                ("relation_attention_tc_kernel<true", "relation attention \"input\""),
-                ("relation_attention_tc_kernel<(bool)1", "relation attention \"input\""),
-                ("relation_attention_tc_kernel", "relation attention \"none\""),
-                ("position_bias_kernel", "fused_position_bias"),
-                ("roi_align_kernel", "roi_align"))
-CONV = ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_convolve")
-GEMM = ("gemm", "gemv", "nvjet", "cublas", "cutlass", "splitk", "dot_kernel")
-COPY = ("copy",)
-ELEMENTWISE = ("elementwise",)
+CANVAS = (608, 1024)
+TRAIN_FRAME = (720, 1280)  # VID's 720p frames, resized by the preset
+NUM_FRAMES = 40  # the synthetic video of the lockstep schedule
 
 
 class _KernelTally(TorchDispatchMode):
@@ -132,6 +111,35 @@ def count_flops(fn) -> dict:
             "special": {name: dict(c) for name, c in tally.special.items()}}
 
 
+def _lockstep_steps(model, lanes: int, rs: np.random.RandomState, canvas):
+    """Endless MEGA lockstep steps of ``lanes`` lanes on the one-video
+    schedule, frames drawn on a ``canvas`` (h, w)."""
+    from ..data.transforms import s2d_pack_frames
+    from ..engine.batched_inference import make_lockstep_step
+    from ..engine.inference import video_schedule
+
+    dev = next(model.parameters()).device
+    v = model.v
+    pool = torch.from_numpy(s2d_pack_frames(
+        rs.randint(0, 256, (16, *canvas, 3), dtype=np.uint8), 4)).to(dev)
+    size = torch.tensor(canvas, dtype=torch.float32, device=dev).expand(lanes, 2)
+    step = make_lockstep_step(model)
+    carries = model.zero_carry(lanes, dev)
+    sched = video_schedule(NUM_FRAMES, v.all_frame_interval - v.key_frame_location - 1,
+                           v.global_size)
+    lane = torch.arange(lanes, device=dev)
+    s = 0
+    while True:
+        fidx, gidx, reset, emit = sched[s % len(sched)]
+        flags = torch.tensor([reset, gidx is not None, emit], device=dev)
+        frames = pool[(5 * lane + fidx) % len(pool)]
+        gframes = pool[(3 * lane + (gidx or 0)) % len(pool)]
+        carries, dets = step(carries, frames, size, gframes, size,
+                             *(f.expand(lanes) for f in flags))
+        s += 1
+        yield dets
+
+
 def mega_step(lanes: int = 12, canvas=CANVAS, device="cuda", compute_dtype="bfloat16"):
     """(one lockstep step of the MEGA flagship as a callable, frames a
     step): ``lanes`` lanes of synthetic packed frames on ``canvas``, weights
@@ -141,24 +149,42 @@ def mega_step(lanes: int = 12, canvas=CANVAS, device="cuda", compute_dtype="bflo
     model = build_mega_flagship(*canvas, device=device, lanes=lanes,
                                 generator=torch.Generator(device).manual_seed(0),
                                 compute_dtype=compute_dtype)
-    steps = profile_stream._lockstep_steps(model, lanes, np.random.RandomState(0), canvas)
+    steps = _lockstep_steps(model, lanes, np.random.RandomState(0), canvas)
     return lambda: next(steps), lanes
+
+
+def _train_steps(model, optimizer, scheduler, cfg, rs: np.random.RandomState):
+    """Endless training iterations of cfg's method on seeded synthetic
+    samples, ``IMS_PER_BATCH`` of them an iteration."""
+    from ..engine.trainer import train_step
+    from .train_bench import synthetic_samples
+
+    dev = next(model.parameters()).device
+    k = cfg.SOLVER.IMS_PER_BATCH
+    samples = synthetic_samples(cfg, TRAIN_FRAME, rs, max(4, 2 * k))
+    gen = torch.Generator(dev).manual_seed(0)
+    s = 0
+    while True:
+        batch = [samples[(s * k + i) % len(samples)] for i in range(k)]
+        losses = train_step(model, optimizer, scheduler, cfg.MODEL.VID.METHOD, batch, dev, gen)
+        s += 1
+        yield losses
 
 
 def train_step(device="cuda"):
     """(one ``mega_R_101`` training iteration as a callable, samples an
     iteration), with FrozenBN statistics calibrated on two frames."""
+    from ..config import get_preset
     from ..models.detectors import build_training_model
     from ..solver import make_lr_scheduler, make_optimizer
     from .train_bench import calibrate_frozen_bn, calibration_frames
 
-    cfg = profile_stream._train_cfg("mega_train")
+    cfg = get_preset("mega_R_101")
     rs = np.random.RandomState(0)
     model = build_training_model(cfg, device, torch.Generator(device).manual_seed(0))
-    calibrate_frozen_bn(model, calibration_frames(cfg, profile_stream.TRAIN_FRAME, rs, device))
+    calibrate_frozen_bn(model, calibration_frames(cfg, TRAIN_FRAME, rs, device))
     optimizer = make_optimizer(cfg, model)
-    steps = profile_stream._train_steps(model, optimizer, make_lr_scheduler(cfg, optimizer),
-                                        cfg, rs)
+    steps = _train_steps(model, optimizer, make_lr_scheduler(cfg, optimizer), cfg, rs)
     return lambda: next(steps), cfg.SOLVER.IMS_PER_BATCH
 
 
@@ -176,70 +202,10 @@ def step_ms(step, warmup: int, iters: int) -> float:
     return statistics.median(ms)
 
 
-def kernel_family(name: str) -> str:
-    """The family of a device kernel (NMS is told by its range, not its name)."""
-    low = name.lower()
-    for pattern, family in HAND_WRITTEN:
-        if pattern in name:
-            return family
-    for patterns, family in ((CONV, "convolutions (cuDNN)"), (GEMM, "GEMMs"),
-                             (COPY, "copies"), (ELEMENTWISE, "elementwise")):
-        if any(p in low for p in patterns):
-            return family
-    return "other"
-
-
-def device_time_by_family(step, iters: int) -> dict:
-    """Device ms a step by kernel family, from a ``torch.profiler`` trace of
-    ``iters`` steps; also the device's busy ms and idle share."""
-    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                              torch.profiler.ProfilerActivity.CUDA])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with prof:
-        for _ in range(iters):
-            step()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    spans = [e for e in events if e.get("ph") == "X"]
-    nms = defaultdict(list)  # thread -> [(start, end)] of the nms ranges
-    for e in spans:
-        if e.get("cat") == "user_annotation" and e["name"] == "nms":
-            nms[e["tid"]].append((e["ts"], e["ts"] + e["dur"]))
-    in_nms = set()  # correlation ids of the launches and copies made inside a range
-    for e in spans:
-        corr = e.get("args", {}).get("correlation")
-        if corr is not None and e.get("cat") == "cuda_runtime" and any(
-                a <= e["ts"] <= b for a, b in nms.get(e["tid"], ())):
-            in_nms.add(corr)
-    device = [e for e in spans if e.get("cat") in DEVICE_CATS]
-    families = defaultdict(float)
-    names = defaultdict(lambda: defaultdict(float))  # family -> kernel name -> ms
-    for e in device:
-        if e.get("args", {}).get("correlation") in in_nms:
-            family = "NMS"
-        elif e["cat"] != "kernel":
-            family = "copies"
-        else:
-            family = kernel_family(e["name"])
-        families[family] += e["dur"] / 1e3 / iters
-        names[family][e["name"][:90]] += e["dur"] / 1e3 / iters
-    busy = profile_stream._union_us([(e["ts"], e["ts"] + e["dur"]) for e in device]) / 1e3
-    return {"ms_per_step_by_family": dict(sorted(families.items(), key=lambda kv: -kv[1])),
-            "top_kernels_by_family": {
-                f: dict(sorted(n.items(), key=lambda kv: -kv[1])[:4]) for f, n in names.items()},
-            "device_busy_ms_per_step": busy / iters,
-            "idle_share_profiled": 1.0 - busy / wall_ms}
-
-
 def profile(step, per_step: int, warmup: int, iters: int,
-            peak_tflops: float = PEAK_TFLOPS, trace: bool = True) -> dict:
-    """The counts, the step time, the achieved rate, the MFU and (with
-    ``trace``) the device time by family of ``step`` on the card."""
+            peak_tflops: float = PEAK_TFLOPS) -> dict:
+    """The counts, the step time, the achieved rate and the MFU of ``step``
+    on the card."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_mfu: needs a CUDA card")
     for _ in range(warmup):  # cuDNN plans and the kernel build before the count
@@ -247,7 +213,7 @@ def profile(step, per_step: int, warmup: int, iters: int,
     counts = count_flops(step)
     ms = step_ms(step, 1, iters)
     tflops = counts["flops"] / (ms * 1e-3) / 1e12
-    out = {
+    return {
         "card": torch.cuda.get_device_name(0),
         "gflop_per_step": counts["flops"] / 1e9,
         "gflop_per_frame": counts["flops"] / 1e9 / per_step,
@@ -261,12 +227,6 @@ def profile(step, per_step: int, warmup: int, iters: int,
         "mfu": tflops / peak_tflops,
         "peak_tflops": peak_tflops,
     }
-    if trace:
-        out["trace"] = device_time_by_family(step, iters)
-        # the profiler slows the host, so the idle share of the plain step
-        # reads the device's busy time against the step's own time
-        out["trace"]["idle_share"] = 1.0 - out["trace"]["device_busy_ms_per_step"] / ms
-    return out
 
 
 def main(argv=None):
@@ -278,7 +238,6 @@ def main(argv=None):
     ap.add_argument("--peak-tflops", type=float, default=PEAK_TFLOPS)
     ap.add_argument("--train", action="store_true",
                     help="one mega_R_101 training iteration instead of the lockstep step")
-    ap.add_argument("--out", default=None, help="directory for summary.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_mfu: needs a CUDA card")
@@ -300,16 +259,7 @@ def main(argv=None):
           f"{unit}), of which {rec['kernel_gflop_per_step']:.2f} in hand-written kernels")
     print(f"step: {rec['ms_per_step']:.2f} ms; achieved {rec['achieved_tflops']:.1f} TFLOP/s "
           f"= {100 * rec['mfu']:.2f} % MFU (peak {args.peak_tflops} TFLOP/s)")
-    tr = rec["trace"]
-    print(f"device busy {tr['device_busy_ms_per_step']:.2f} ms a step: idle share "
-          f"{tr['idle_share']:.3f} of the plain step ({tr['idle_share_profiled']:.3f} of the "
-          f"profiled one); device ms a step by family (largest kernels):")
-    for family, ms in tr["ms_per_step_by_family"].items():
-        top = "; ".join(f"{n[:50]} {t:.2f}" for n, t in tr["top_kernels_by_family"][family].items())
-        print(f"  {family:>30s}: {ms:8.3f}  ({top})")
-    if args.out:
-        Path(args.out).mkdir(parents=True, exist_ok=True)
-        (Path(args.out) / "summary.json").write_text(json.dumps(rec, indent=1))
+    print(json.dumps(rec))
 
 
 if __name__ == "__main__":

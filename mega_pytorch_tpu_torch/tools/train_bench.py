@@ -1,7 +1,7 @@
-"""What the training measurements share: ``chip_smoke.py``'s train phases
-and ``tools/profile_stream.py --method {mega,rdn,fgfa,dff}_train`` start
-from the same seeded model with FrozenBN statistics calibrated on seeded
-frames, and profile_stream trains on seeded synthetic samples."""
+"""What the training checks and tools share: ``chip_smoke.py``'s train
+phases, ``tools/ddp_check.py`` and ``tools/profile_mfu.py --train`` start
+from a seeded model with FrozenBN statistics calibrated on seeded frames,
+and the two tools train on seeded synthetic samples."""
 
 from __future__ import annotations
 

@@ -69,7 +69,8 @@ ATOL_BOX = 5e-3
 BOX_FIELDS = ("rois", "key_rois", "mem_rois")
 # lane against one-lane step, on the CPU: GEMMs of another batch size round
 # differently (~3e-6 seen); proposals, masks and labels stay exact. On the
-# card the attention kernels are lane-independent bit for bit (chip_smoke.py)
+# card the attention kernels are lane-independent bit for bit
+# (test_torch_kernels_cuda.py)
 ATOL_LANE = 1e-5
 CARRY_FIELDS = ("rois", "roi_valid", "feats", "key_rois", "key_valid", "key_feats",
                 "sizes", "mem_rois", "mem_feats", "mem_valid", "g_feats", "g_valid")
